@@ -1,0 +1,487 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``pointstowood_tpu_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failed check raises, so the script
+exits non-zero and prints no final line):
+
+1. device   -- card name and power limit (nvidia-smi), torch/CUDA versions;
+               TF32 is switched off for matrix products and convolutions.
+2. build    -- nvcc builds every kernel of ``pointstowood_tpu_torch/csrc``
+               for sm_90a (one nvcc per source, all started together).
+3. kernel   -- each CUDA kernel at the shapes the canonical eval forward
+               (B=8 tiles x 16384 points, C=32, bf16, fast kNN) gives it,
+               held against its plain PyTorch version on the same CUDA
+               inputs, with its time, the plain version's time, a one-call
+               PyTorch yardstick where one exists, and its bound.
+4. forward  -- ``run_inference`` over a synthetic plot (8 full 16384-point
+               tiles and a few smaller ones, two capacity buckets) with
+               seeded random weights loaded through ``state_dict_from_flax``;
+               every kernel's launch counter must grow during that run.
+               Then the median forward time of one B=8 x 16384 batch,
+               and (phase ``profile``) that forward's device time by
+               kernel name under torch.profiler, with its idle share.
+5. crosscheck -- one full tile through the port on the CPU (plain versions)
+               and on the card (kernels): labels and probabilities agree.
+6. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+   the final ``{"ok": true, "device": {...}}`` line.
+
+A copy of every printed record goes to ``build/chip_smoke.json``.
+The script imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 141190
+
+# Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores and HBM3 bandwidth. The bound of a kernel is the larger of its
+# operations over the first and its bytes over the second.
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+RECORDS: list[dict] = []
+
+
+def emit(phase: str, **fields) -> dict:
+    rec = {"phase": phase, **fields}
+    RECORDS.append(rec)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    t_ops = ops / FP32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---------------------------------------------------------------- data
+
+
+def synthetic_tiles(seed: int):
+    """A plot of trunk + crown trees, one tree per 4 m tile: eight full
+    16384-point tiles and four of 4500-6000 points (a second capacity
+    bucket). Points are float32 [x, y, z, reflectance]; wood (trunk) is
+    bright, leaves dark, as in the repo's verify recipe."""
+    from pointstowood_tpu_torch.data.tiling import Tile
+
+    rng = np.random.default_rng(seed)
+    sizes = [16384] * 8 + [6000, 5500, 5000, 4500]
+    tiles = []
+    for i, n in enumerate(sizes):
+        ox, oy = 100.0 + 4.0 * (i % 4), 50.0 + 4.0 * (i // 4)
+        n_trunk = n // 3
+        theta = rng.uniform(0, 2 * np.pi, n_trunk)
+        r = rng.uniform(0, 0.15, n_trunk)
+        trunk = np.stack([ox + 2 + r * np.cos(theta),
+                          oy + 2 + r * np.sin(theta),
+                          rng.uniform(0, 4, n_trunk)], 1)
+        n_crown = n - n_trunk
+        crown = np.stack([ox + 2 + rng.normal(0, 0.8, n_crown),
+                          oy + 2 + rng.normal(0, 0.8, n_crown),
+                          3 + rng.normal(0, 0.5, n_crown)], 1)
+        crown = np.clip(crown, [ox, oy, 0], [ox + 3.99, oy + 3.99, 3.99])
+        refl = np.concatenate([rng.normal(2, 0.3, n_trunk),
+                               rng.normal(-1, 0.5, n_crown)])
+        pts = np.concatenate([np.concatenate([trunk, crown]),
+                              refl[:, None]], 1).astype(np.float32)
+        tiles.append(Tile(points=pts[rng.permutation(n)], grid_size=4.0,
+                          cell_id=i))
+    return tiles
+
+
+def seeded_flax_variables(net, seed: int) -> dict:
+    """Random weights in the JAX package's variable layout (nested dicts of
+    numpy arrays), shaped from the port's own modules: He-scaled linear
+    kernels, BatchNorm statistics near identity."""
+    from pointstowood_tpu_torch.utils.checkpoint_convert import build_key_map
+
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, **leaves):
+        node = tree
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node.update(leaves)
+
+    def normal(shape, scale):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    for tpath, (kind, fpath) in build_key_map().items():
+        w = shapes[f"{tpath}.weight"]
+        if kind in ("linear", "conv1d"):
+            n_out, n_in = w[0], w[1]
+            put(params, fpath, kernel=normal((n_in, n_out), np.sqrt(2 / n_in)),
+                bias=normal((n_out,), 0.05))
+        elif kind == "depthwise":
+            put(params, fpath, dw_scale=1 + normal((w[0],), 0.1),
+                dw_bias=normal((w[0],), 0.05))
+        else:
+            put(params, fpath, scale=1 + normal(w, 0.1), bias=normal(w, 0.1))
+            put(stats, fpath, mean=normal(w, 0.1),
+                var=rng.uniform(0.5, 2.0, w).astype(np.float32))
+    return {"params": params, "batch_stats": stats}
+
+
+def stage_geometry(net, pos, mask):
+    """(positions, mask) of every level of the forward: the input points
+    and the voxel-sampled centres of SA1-SA3, as the Net samples them."""
+    from pointstowood_tpu_torch.model.pointconv import gather_rows
+    from pointstowood_tpu_torch.ops.voxel import (
+        voxel_cell_ids,
+        voxel_representatives,
+    )
+
+    levels = [(pos, mask)]
+    caps = net.capacities(pos.shape[1])
+    for cap, res in zip(caps, net.sa_resolutions):
+        p, m = levels[-1]
+        ids = voxel_cell_ids(p, res, mask=m)
+        cidx, cval = voxel_representatives(ids, cap, mask=m,
+                                           priority=net.voxel_priority)
+        levels.append((gather_rows(p, cidx).contiguous(), cval))
+    return levels
+
+
+# ---------------------------------------------------------------- checks
+
+
+def check_select(name, d_k, i_k, d_p, i_p):
+    """Kernel vs plain top-k: the same finite slots, distances equal to
+    within 1e-5 relative (FMA contraction may move the last ulp), and an
+    index differing only where its distance is a near-tie of the plain
+    version's. Returns the largest absolute distance difference."""
+    import torch
+
+    fin = torch.isfinite(d_p)
+    if not torch.equal(torch.isfinite(d_k), fin):
+        raise AssertionError(f"{name}: finite slots differ")
+    diff = (d_k - d_p).abs()[fin]
+    tol = 1e-5 * d_p.abs()[fin] + 1e-12
+    if bool((diff > tol).any()):
+        raise AssertionError(
+            f"{name}: distance differs by {float(diff.max())}")
+    moved = (i_k != i_p) & fin
+    frac = float(moved.float().mean())
+    if frac > 1e-3:
+        raise AssertionError(f"{name}: {frac:.2e} of slots hold another "
+                             "index (more than near-ties explain)")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from pointstowood_tpu_torch.config import (
+        ModelConfig,
+        PredictConfig,
+        TilingConfig,
+    )
+    from pointstowood_tpu_torch.data.dataset import pad_tiles
+    from pointstowood_tpu_torch.ops import build
+    from pointstowood_tpu_torch.ops.interp_kernels import (
+        blend_plain,
+        interp_blend,
+    )
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        knn_top2,
+        knn_topk,
+        select_plain,
+    )
+    from pointstowood_tpu_torch.predict.predicter import (
+        build_net,
+        forward_probs,
+        run_inference,
+    )
+    from pointstowood_tpu_torch.utils.checkpoint_convert import (
+        state_dict_from_flax,
+    )
+
+    # ---- 1. device
+    smi = nvidia_smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, kind=kind,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    build.build_all(verbose=True)
+    for name in build.SOURCES:
+        build.library(name)
+    emit("build", seconds=time.perf_counter() - t0,
+         sources=[f"pointstowood_tpu_torch/csrc/{n}.cu"
+                  for n in build.SOURCES])
+
+    # ---- 3. kernels at the canonical shapes
+    tiles = synthetic_tiles(SEED)
+    model_cfg = ModelConfig()  # C=32, k=32, fast, bf16, hash voxels
+    net = build_net(model_cfg, device=dev)
+    net.load_state_dict(
+        state_dict_from_flax(seeded_flax_variables(net, SEED)))
+    full = [t.points for t in tiles if len(t) == 16384][:8]
+    batch = pad_tiles(full, 16384)
+    pos = torch.from_numpy(batch.pos).to(dev)
+    mask = torch.from_numpy(batch.mask).to(dev)
+    lv = stage_geometry(net, pos, mask)
+    k = model_cfg.k
+    rows = []
+
+    knn_src = "pointstowood_tpu_torch/csrc/knn.cu"
+    pk = "pointstowood_tpu/ops/pallas_knn.py"
+    select_cases = [
+        # (name, wrapper, rows level, cols level, k, replaces)
+        ("knn_topk SA1", knn_topk, 1, 0, k, f"{pk}:572"),
+        ("knn_topk SA2", knn_topk, 2, 1, k, f"{pk}:572"),
+        ("knn_topk SA3", knn_topk, 3, 2, k, f"{pk}:399"),
+        ("knn_top2 SA1 transpose", knn_top2, 0, 1, 2, f"{pk}:572"),
+        ("knn_top2 SA2 transpose", knn_top2, 1, 2, 2, f"{pk}:572"),
+        ("knn_top2 FP3", knn_top2, 2, 3, 2, f"{pk}:836"),
+    ]
+    selected = {}
+    for name, fn, ri, ci, kk, replaces in select_cases:
+        r, (c, cm) = lv[ri][0], lv[ci]
+        call = ((lambda: fn(r, c, cm, kk)) if fn is knn_topk
+                else (lambda: fn(r, c, cm)))
+        d_k, i_k = call()
+        torch.cuda.synchronize()
+        d_p, i_p = select_plain(r, c, cm, kk)
+        err = check_select(name, d_k, i_k, d_p, i_p)
+        selected[name] = (i_k, d_k)
+        b, nr, nc = r.shape[0], r.shape[1], c.shape[1]
+        ms = cuda_ms(call)
+        plain_ms = cuda_ms(lambda: select_plain(r, c, cm, kk), reps=3,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(r, c), kk, dim=-1,
+                                            largest=False), reps=5)
+        bms, by = bound(8.0 * b * nr * nc,
+                        12 * b * (nr + nc) + b * nc + 8 * b * nr * kk)
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda", "source": knn_src,
+            "replaces": replaces, "wrapper": fn.__name__,
+            "shape": [b, nr, nc, kk], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms,
+            "library_call": "torch.topk(torch.cdist(rows, cols)), no mask",
+        })
+        emit("kernel", **rows[-1])
+
+    # K3 at FP3 (the FP3 top-2 above), FP2 and FP1 (the SA2 and SA1
+    # transposes): 512 bf16 channels on the coarser level's points,
+    # blended onto the finer level's.
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    c_fp = net.channels * 16
+    blend_cases = [("interp_blend FP3", "knn_top2 FP3", 2),
+                   ("interp_blend FP2", "knn_top2 SA2 transpose", 1),
+                   ("interp_blend FP1", "knn_top2 SA1 transpose", 0)]
+    for name, source_case, lvl in blend_cases:
+        x = torch.randn((8, lv[lvl + 1][0].shape[1], c_fp), generator=g,
+                        device=dev).to(torch.bfloat16)
+        idx, d2 = selected[source_case]
+        tmask = lv[lvl][1]
+        y_k = interp_blend(x, idx, d2, tmask)
+        torch.cuda.synchronize()
+        y_p = blend_plain(x, idx, d2, tmask)
+        err = float((y_k.float() - y_p.float()).abs().max())
+        tol = 1e-2 * float(y_p.float().abs().max())  # one bf16 step
+        if not (torch.isfinite(y_k.float()).all() and err <= tol):
+            raise AssertionError(f"{name}: max abs err {err} > {tol}")
+        ms = cuda_ms(lambda: interp_blend(x, idx, d2, tmask))
+        plain_ms = cuda_ms(lambda: blend_plain(x, idx, d2, tmask), reps=5)
+        # yardstick: one embedding_bag call (sum of weighted gathered
+        # rows) with the weights normalised beforehand
+        bsz, n_s, _ = x.shape
+        w = torch.where(torch.isfinite(d2),
+                        1.0 / torch.clamp(d2, min=1e-16), 0.0)
+        w = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-16))
+        flat = idx.long() + (torch.arange(bsz, device=dev)
+                             * n_s)[:, None, None]
+        flat2, w2 = flat.reshape(-1, 2), w.reshape(-1, 2).to(x.dtype)
+        x_flat = x.reshape(-1, c_fp)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            flat2, x_flat, per_sample_weights=w2, mode="sum"))
+        # bytes this data needs: each source row that a live slot uses,
+        # the neighbour lists and mask, the output
+        live = torch.isfinite(d2) & tmask[..., None]
+        n_rows_read = int(torch.unique(flat[live]).numel())
+        n_t = idx.shape[1]
+        bms, by = bound(
+            float(live.sum()) * 2 * c_fp + float(tmask.sum()) * c_fp,
+            n_rows_read * c_fp * 2 + bsz * n_t * (8 * 2 + 1)
+            + bsz * n_t * c_fp * 2)
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda",
+            "source": "pointstowood_tpu_torch/csrc/interp.cu",
+            "replaces": "pointstowood_tpu/ops/pallas_interp.py:168",
+            "wrapper": "interp_blend", "shape": [bsz, n_t, n_s, c_fp],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "library_call": "torch.nn.functional.embedding_bag(mode='sum', "
+                            "per_sample_weights)",
+        })
+        emit("kernel", **rows[-1])
+
+    # ---- 4. the main path: run_inference over the plot
+    wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
+                "interp_blend": interp_blend}
+    for fn in wrappers.values():
+        fn.launches = 0
+    predict_cfg = PredictConfig(batch_size=8)
+    tiling_cfg = TilingConfig(grid_size=(4.0,), min_pts=128, max_pts=16384)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_inference(tiles, net, predict_cfg, tiling_cfg, device=dev)
+    run_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    n_pts = sum(len(t) for t in tiles)
+    if out.shape != (n_pts, 5):
+        raise AssertionError(f"run_inference rows {out.shape} != {n_pts}")
+    probs = out[:, 4]
+    if not (np.isfinite(out).all() and probs.min() >= 0
+            and probs.max() <= 1):
+        raise AssertionError("run_inference: probabilities not in [0, 1]")
+    order_xyz = np.concatenate([t.points[:, :3] for t in tiles
+                                if len(t) < 16384]
+                               + [t.points[:, :3] for t in tiles
+                                  if len(t) == 16384])
+    if not np.allclose(out[:, :3], order_xyz, atol=1e-4):
+        raise AssertionError("run_inference: xyz rows out of order")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no launch on the main path")
+    for row in rows:
+        row["launches"] = launches[row["wrapper"]]
+
+    refl = torch.from_numpy(batch.reflectance).to(dev)
+    sf = torch.from_numpy(batch.sf).to(dev)
+    fwd = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        forward_probs(net, pos, refl, mask, sf)
+        torch.cuda.synchronize()
+        if i >= 2:
+            fwd.append((time.perf_counter() - t1) * 1e3)
+    fwd_ms = statistics.median(fwd)
+    emit("forward", plot_points=n_pts, tiles=len(tiles),
+         run_inference_s=run_s, launches=launches,
+         wood_fraction=float((out[:, 3] > 0).mean()),
+         forward_ms_b8x16384=fwd_ms, forward_ms_all=fwd,
+         points_per_s=float(batch.mask.sum()) / (fwd_ms / 1e3),
+         max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    # where one forward's device time goes, by kernel name, and the share
+    # of the forward's device span in which no kernel ran
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward_probs(net, pos, refl, mask, sf)
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    by_kernel: dict = {}
+    busy_us, cur_end = 0.0, None
+    for start, end, name in spans:
+        by_kernel[name] = by_kernel.get(name, 0.0) + (end - start) / 1e3
+        if cur_end is None or start > cur_end:
+            busy_us += end - start
+            cur_end = end
+        elif end > cur_end:
+            busy_us += end - cur_end
+            cur_end = end
+    span_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    emit("profile", device_events=len(spans),
+         device_busy_ms=busy_us / 1e3 if spans else None,
+         device_span_ms=span_us / 1e3 if spans else None,
+         idle_share=(1 - busy_us / span_us) if span_us else None,
+         top_kernels_ms=sorted(by_kernel.items(),
+                               key=lambda kv: -kv[1])[:20])
+
+    # ---- 5. one full tile on the CPU (plain versions) vs the card
+    one = pad_tiles([full[0]], 16384)
+    cpu_net = copy.deepcopy(net).to("cpu")
+    args = [torch.from_numpy(a) for a in
+            (one.pos, one.reflectance, one.mask, one.sf)]
+    t1 = time.perf_counter()
+    p_cpu = forward_probs(cpu_net, *args)[0].float().numpy()
+    cpu_s = time.perf_counter() - t1
+    p_gpu = forward_probs(net, *(a.to(dev) for a in args))[0].float()
+    p_gpu = p_gpu.cpu().numpy()
+    m = one.mask[0]
+    agree = float(((p_cpu[m] >= 0.5) == (p_gpu[m] >= 0.5)).mean())
+    dp = np.abs(p_cpu[m] - p_gpu[m])
+    p99 = float(np.quantile(dp, 0.99))
+    emit("crosscheck", label_agreement=agree, p99_abs_dprob=p99,
+         max_abs_dprob=float(dp.max()), mean_prob=float(p_gpu[m].mean()),
+         cpu_seconds=cpu_s)
+    if agree < 0.995 or p99 > 0.02:
+        raise AssertionError("CPU and card disagree on the full tile")
+
+    # ---- 6. results
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+        json.dump({"records": RECORDS, "kernels": rows}, f, indent=1)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

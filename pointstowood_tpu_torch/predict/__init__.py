@@ -1,0 +1,1 @@
+"""predict layer of the PyTorch port (see the package docstring)."""

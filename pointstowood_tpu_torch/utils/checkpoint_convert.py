@@ -1,0 +1,127 @@
+"""Checkpoint conversion for the port (own copy of the key map of
+pointstowood_tpu/utils/checkpoint_convert.py).
+
+The port's ``Net.state_dict()`` has the reference Net's key layout
+(reference: pointstowood/src/model.py:204-224), so a reference ``.pth``
+state_dict loads with ``Net.load_state_dict``. ``state_dict_from_flax``
+turns the JAX package's variables (``{"params": ..., "batch_stats": ...}``
+nested dicts of numpy arrays) into that layout.
+
+Layout conversions (flax -> torch):
+  Dense kernel (in, out)          -> Linear weight (out, in)
+  Dense kernel (in, out)          -> Conv1d k=1 weight (out, in, 1)
+  per-channel dw_scale (C,)       -> depthwise Conv1d weight (C, 1, 1)
+  BN scale/bias + mean/var stats  -> weight/bias + running_mean/var
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _mlp_entries(torch_prefix: str, n_layers: int) -> Dict[str, Tuple[str, str]]:
+    """Reference MLP(channels) key map: block i (1-based) is
+    Seq(Lin, ReLU[, BN]) at index i-1; BN present for i != 1 at slot 2."""
+    out = {}
+    for i in range(1, n_layers + 1):
+        out[f"{torch_prefix}.{i-1}.0"] = ("linear", f"lin{i}")
+        if i != 1:
+            out[f"{torch_prefix}.{i-1}.2"] = ("bn", f"bn{i}")
+    return out
+
+
+def _irb_entries(torch_prefix: str) -> Dict[str, Tuple[str, str]]:
+    """InvertedResidualBlock map (model.py:46-85); flax paths are relative
+    to the residual_block module."""
+    p = torch_prefix
+    return {
+        f"{p}.expand.0": ("conv1d", "expand"),
+        f"{p}.expand.1": ("bn", "expand_bn"),
+        f"{p}.conv.0.depthwise_conv": ("depthwise", "ds1"),
+        f"{p}.conv.0.depthwise_bn": ("bn", "ds1/dw_bn"),
+        f"{p}.conv.0.pointwise_conv": ("conv1d", "ds1/pw"),
+        f"{p}.conv.0.pointwise_bn": ("bn", "ds1/pw_bn"),
+        f"{p}.conv.1": ("bn", "mid_bn"),
+        f"{p}.conv.3.depthwise_conv": ("depthwise", "ds2"),
+        f"{p}.conv.3.depthwise_bn": ("bn", "ds2/dw_bn"),
+        f"{p}.conv.3.pointwise_conv": ("conv1d", "ds2/pw"),
+        f"{p}.conv.3.pointwise_bn": ("bn", "ds2/pw_bn"),
+        f"{p}.conv.4": ("bn", "out_bn"),
+        f"{p}.project.0": ("conv1d", "project"),
+        f"{p}.project.1": ("bn", "project_bn"),
+    }
+
+
+def build_key_map() -> Dict[str, Tuple[str, str]]:
+    """torch module path -> (kind, flax path) for the reference Net."""
+    m: Dict[str, Tuple[str, str]] = {}
+    for k, (kind, path) in _mlp_entries("stem_mlp", 1).items():
+        m[k] = (kind, f"stem_mlp/{path}")
+    for i in (1, 2, 3):
+        sa = f"sa{i}_module"
+        for k, (kind, path) in _mlp_entries(f"{sa}.conv.local_nn", 2).items():
+            m[k] = (kind, f"{sa}/conv/local_nn/{path}")
+        for k, (kind, path) in _irb_entries(f"{sa}.residual_block").items():
+            m[k] = (kind, f"{sa}/residual_block/{path}")
+        for fc in ("fc1", "fc2", "fc3"):
+            m[f"{sa}.reflectanceyesno.{fc}"] = (
+                "linear", f"{sa}/reflectanceyesno/{fc}")
+    for k, (kind, path) in _mlp_entries("sa4_module.NN", 2).items():
+        m[k] = (kind, f"sa4_module/{path}")
+    for i in (4, 3, 2, 1):
+        for k, (kind, path) in _mlp_entries(f"fp{i}_module.NN", 2).items():
+            m[k] = (kind, f"fp{i}_module/{path}")
+    m["conv1"] = ("conv1d", "conv1")
+    m["conv2"] = ("conv1d", "conv2")
+    m["norm"] = ("bn", "norm")
+    return m
+
+
+def _get(tree: dict, path: str):
+    node = tree
+    for part in path.split("/"):
+        if node is None or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax variables (nested dicts of arrays) -> reference-layout
+    state_dict of fp32 torch tensors. Blocks absent from ``variables``
+    are absent from the result (load with ``strict=False`` to keep the
+    module's own values there)."""
+    params = variables.get("params", {})
+    batch_stats = variables.get("batch_stats", {})
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    sd: Dict[str, torch.Tensor] = {}
+    for torch_path, (kind, flax_path) in build_key_map().items():
+        p = _get(params, flax_path)
+        if p is None:
+            continue
+        if kind == "linear":
+            sd[f"{torch_path}.weight"] = t(np.asarray(p["kernel"]).T)
+            sd[f"{torch_path}.bias"] = t(p["bias"])
+        elif kind == "conv1d":
+            sd[f"{torch_path}.weight"] = t(np.asarray(p["kernel"]).T[..., None])
+            sd[f"{torch_path}.bias"] = t(p["bias"])
+        elif kind == "depthwise":
+            sd[f"{torch_path}.weight"] = t(
+                np.asarray(p["dw_scale"]).reshape(-1, 1, 1))
+            sd[f"{torch_path}.bias"] = t(p["dw_bias"])
+        elif kind == "bn":
+            sd[f"{torch_path}.weight"] = t(p["scale"])
+            sd[f"{torch_path}.bias"] = t(p["bias"])
+            stats = _get(batch_stats, flax_path)
+            if stats is not None:
+                sd[f"{torch_path}.running_mean"] = t(stats["mean"])
+                sd[f"{torch_path}.running_var"] = t(stats["var"])
+                sd[f"{torch_path}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
