@@ -11,7 +11,7 @@ exits non-zero and prints no final line):
                TF32 is switched off for matrix products and convolutions.
 2. build    -- nvcc builds every kernel of ``pointstowood_tpu_torch/csrc``
                for sm_90a (one nvcc per source, all started together).
-3. kernel   -- each CUDA kernel at the shapes the canonical eval forward
+3. kernel   -- each forward kernel at the shapes the canonical eval forward
                (B=8 tiles x 16384 points, C=32, bf16, fast kNN) gives it,
                held against its plain PyTorch version on the same CUDA
                inputs, with its time, the plain version's time, a one-call
@@ -19,17 +19,37 @@ exits non-zero and prints no final line):
 4. forward  -- ``run_inference`` over a synthetic plot (8 full 16384-point
                tiles and a few smaller ones, two capacity buckets) with
                seeded random weights loaded through ``state_dict_from_flax``;
-               every kernel's launch counter must grow during that run.
-               Then the median forward time of one B=8 x 16384 batch,
+               every forward kernel's launch counter must grow during that
+               run. Then the median forward time of one B=8 x 16384 batch,
                and (phase ``profile``) that forward's device time by
                kernel name under torch.profiler, with its idle share.
 5. crosscheck -- one full tile through the port on the CPU (plain versions)
                and on the card (kernels): labels and probabilities agree.
-6. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
+6. predict  -- the serving path: a synthetic ~1.2 M-point plot of trees
+               over ground is written as PLY under ``build/`` and run
+               through ``cli.predict.main`` with the default flags (dual
+               2 m / 4 m grid, max_pts 16384, bf16, fast kNN, any-wood 1,
+               fusion auto) and a seeded ``.pth``. Every row comes back
+               with x/y/z bit-identical, labels in {0, 1}, pwood on the
+               1/2046 grid, and all four kernels' launch counters grew.
+               Per-phase wall times, points per second, peak memory.
+7. kernel (pair_select) -- the fusion kernel on the plot's real entries,
+               over the flat arrays the CLI builds (its batcher, FlatSink
+               layout and fusion plan), for k_out 64 and 32, with a
+               structured probability field (a sigmoid of the distance to
+               the trunk axes) written through ``FlatSink.write``; held
+               bit for bit against ``pair_select_plain``; times, bound and
+               a yardstick over every entry.
+8. fusion_crosscheck -- ``fuse_on_device`` on those arrays against the
+               host path (exact scipy kNN + median/vote over the tiles'
+               own points and the field there) on a seeded sample of
+               50 000 query rows.
+9. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
    the final ``{"ok": true, "device": {...}}`` line.
 
 A copy of every printed record goes to ``build/chip_smoke.json``.
-The script imports nothing of JAX and nothing of the JAX package.
+The script imports nothing of JAX, nothing of pandas and nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -187,6 +207,76 @@ def stage_geometry(net, pos, mask):
     return levels
 
 
+# ---------------------------------------------------------------- the plot
+
+
+def synthetic_plot(seed: int, n_side: int = 6):
+    """A plot of n_side x n_side trees (trunk + crown) on a jittered 4 m
+    grid over a ground layer, as a column table {x, y, z, intensity}; wood
+    (trunk) is bright, leaves dark, ground in between. n_side = 6: 24 m x
+    24 m, about 1.2 M points. Also returns the trunk axes' (x, y)."""
+    rng = np.random.default_rng(seed)
+    cols, refl, axes = [], [], []
+    side = 4.0 * n_side
+    for i in range(n_side * n_side):
+        cx = 2.0 + 4.0 * (i % n_side) + rng.uniform(-0.8, 0.8)
+        cy = 2.0 + 4.0 * (i // n_side) + rng.uniform(-0.8, 0.8)
+        axes.append((cx, cy))
+        h = rng.uniform(8.0, 14.0)
+        r0 = rng.uniform(0.1, 0.25)
+        n_trunk, n_crown = 9000, 20000
+        theta = rng.uniform(0, 2 * np.pi, n_trunk)
+        r = r0 + rng.normal(0, 0.01, n_trunk)
+        cols.append(np.stack([cx + r * np.cos(theta), cy + r * np.sin(theta),
+                              rng.uniform(0, h, n_trunk)], 1))
+        refl.append(rng.normal(2, 0.3, n_trunk))
+        cols.append(np.stack([cx + rng.normal(0, 1.4, n_crown),
+                              cy + rng.normal(0, 1.4, n_crown),
+                              h - 2 + rng.normal(0, 1.2, n_crown)], 1))
+        refl.append(rng.normal(-1, 0.5, n_crown))
+    n_ground = int(130000 * (n_side / 6) ** 2)
+    cols.append(np.stack([rng.uniform(0, side, n_ground),
+                          rng.uniform(0, side, n_ground),
+                          rng.normal(0, 0.05, n_ground)], 1))
+    refl.append(rng.normal(0.5, 0.5, n_ground))
+    xyz = np.concatenate(cols)
+    perm = rng.permutation(len(xyz))
+    xyz, refl = xyz[perm], np.concatenate(refl)[perm]
+    table = {"x": xyz[:, 0] + 500.0, "y": xyz[:, 1] + 300.0,
+             "z": xyz[:, 2] + 20.0, "intensity": refl}
+    trunks = np.asarray(axes) + np.array([500.0, 300.0])
+    return table, trunks
+
+
+def trunk_field(xyz: np.ndarray, trunks: np.ndarray) -> np.ndarray:
+    """Structured wood probability: a sigmoid of the horizontal distance
+    to the nearest trunk axis (as tests/test_tpu_fusion.py builds it), so
+    both classes and a sharp boundary appear."""
+    from scipy.spatial import cKDTree
+
+    r, _ = cKDTree(trunks).query(xyz[:, :2], k=1)
+    return (1 / (1 + np.exp((r - 0.4) * 4))).astype(np.float32)
+
+
+def select_all(fn, entries, k):
+    """``fn`` (pair_select or its plain version) over every entry of the
+    plot, in the launches ``fuse_on_device`` makes."""
+    import torch
+
+    from pointstowood_tpu_torch.predict.device_fusion import (
+        ENTRIES_PER_LAUNCH,
+    )
+
+    queries, q_len, regions, src, pay = entries
+    ds, ps = [], []
+    for e0 in range(0, q_len.shape[0], ENTRIES_PER_LAUNCH):
+        e1 = e0 + ENTRIES_PER_LAUNCH
+        d, p = fn(queries[e0:e1], q_len[e0:e1], src, pay, regions[e0:e1], k)
+        ds.append(d)
+        ps.append(p)
+    return torch.cat(ds), torch.cat(ps)
+
+
 # ---------------------------------------------------------------- checks
 
 
@@ -211,6 +301,198 @@ def check_select(name, d_k, i_k, d_p, i_p):
         raise AssertionError(f"{name}: {frac:.2e} of slots hold another "
                              "index (more than near-ties explain)")
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_exact(name, d_k, p_k, d_p, p_p):
+    """Kernel vs plain pair selection: the kernel computes the plain
+    version's rounded difference-form d2 and breaks ties to the lower
+    union index, so distances and payloads must be equal bit for bit."""
+    import torch
+
+    if not torch.equal(d_k, d_p):
+        raise AssertionError(f"{name}: distances differ from the plain "
+                             "version")
+    if not torch.equal(p_k, p_p):
+        moved = float((p_k != p_p).float().mean())
+        raise AssertionError(f"{name}: {moved:.2e} of slots hold another "
+                             "payload")
+    return 0.0
+
+
+def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
+    """Phases 6-8: the predict CLI over the synthetic plot (n_side x
+    n_side trees), ``pair_select`` on its entries, and the pair path
+    against the host path. Appends the pair_select rows to ``rows`` and
+    sets every row's ``launches`` from the predict run."""
+    import torch
+
+    from pointstowood_tpu_torch.cli import predict as predict_cli
+    from pointstowood_tpu_torch.config import PredictConfig, TilingConfig
+    from pointstowood_tpu_torch.data.tiling import preprocess_cloud, xyz_of
+    from pointstowood_tpu_torch.io import load_file, read_ply, write_ply
+    from pointstowood_tpu_torch.io.loader import canonicalize_columns
+    from pointstowood_tpu_torch.ops.fusion_kernels import (
+        pair_select,
+        pair_select_plain,
+        quantize_payload,
+    )
+    from pointstowood_tpu_torch.predict import device_fusion
+    from pointstowood_tpu_torch.predict.predicter import tile_batcher
+    from pointstowood_tpu_torch.predict.fusion import fuse_labels, knn_indices
+    from pointstowood_tpu_torch.utils.checkpoint_convert import (
+        state_dict_from_flax,
+    )
+
+    # ---- 6. the serving path: cli.predict.main over a ~1.2 M-point plot
+    work = os.path.join(ROOT, "build", "chip_smoke_plot")
+    os.makedirs(work, exist_ok=True)
+    plot, trunks = synthetic_plot(SEED, n_side)
+    ply_path = os.path.join(work, "plot.ply")
+    write_ply(ply_path, plot)
+    model_path = os.path.join(work, "model.pth")
+    torch.save({"model_state_dict": state_dict_from_flax(
+        seeded_flax_variables(net, SEED))}, model_path)
+    src = read_ply(ply_path)
+    n_plot = len(src["x"])
+
+    wrappers["pair_select"] = pair_select
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (rec,) = predict_cli.main([
+        "--point-cloud", ply_path, "--model", model_path,
+        "--grid_size", "2.0", "4.0", "--min_pts", "128",
+        "--max_pts", "16384", "--batch_size", "8"], device=dev)
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    out = read_ply(rec["output"])
+    if len(out["x"]) != n_plot:
+        raise AssertionError(f"predict: {len(out['x'])} rows != {n_plot}")
+    for c in ("x", "y", "z"):
+        if not np.array_equal(out[c], src[c]):
+            raise AssertionError(f"predict: column {c} changed")
+    labels, pwood = out["label"], out["pwood"]
+    if not set(np.unique(labels).tolist()) <= {0.0, 1.0}:
+        raise AssertionError("predict: labels outside {0, 1}")
+    if not (np.isfinite(pwood).all() and pwood.min() >= 0
+            and pwood.max() <= 1):
+        raise AssertionError("predict: pwood outside [0, 1]")
+    if np.abs(pwood * 2046 - np.round(pwood * 2046)).max() > 1e-6:
+        raise AssertionError("predict: pwood off the 1/2046 grid")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no launch on the predict path")
+    for row in rows:
+        row["launches"] = launches[row["wrapper"]]
+    emit("predict", nvidia_smi=smi, plot_points=n_plot, tiles=rec["tiles"],
+         columns=list(out), seconds=rec["seconds"], wall_s=wall_s,
+         points_per_s=n_plot / wall_s, launches=launches,
+         max_memory_gib=peak_gib, wood_fraction=float(labels.mean()),
+         mean_pwood=float(pwood.mean()))
+
+    # ---- 7. pair_select on the flat arrays the CLI builds (its batcher,
+    # FlatSink layout and plan), with a structured field written through
+    # FlatSink.write at each batch's positions + tile shifts
+    pc, _ = load_file(ply_path, additional_headers=True)
+    pc, _, _ = canonicalize_columns(pc, mode="predict")
+    tiling_cfg = TilingConfig()  # the CLI defaults: 2 m / 4 m, 128, 16384
+    plot_tiles = preprocess_cloud(pc, tiling_cfg)
+    batcher = tile_batcher(plot_tiles, PredictConfig(batch_size=8),
+                           tiling_cfg)
+    sink = device_fusion.sink_for(plot_tiles, batcher, dev)
+    for _, batch, _ in batcher:
+        bxyz = batch.pos + batch.shift[:, None, :]
+        bfield = trunk_field(bxyz.reshape(-1, 3), trunks)
+        sink.write(torch.from_numpy(batch.pos).to(dev), batch.shift,
+                   torch.from_numpy(bfield.reshape(bxyz.shape[:2])).to(dev))
+    query_xyz = xyz_of(pc)
+    plan = device_fusion.plan_fusion(plot_tiles, query_xyz,
+                                     tiling_cfg.min_pts, sink.layout)
+    flat_xyz, flat_probs = sink.arrays()
+    entries = (*device_fusion.entry_tensors(plan, query_xyz, dev), flat_xyz,
+               quantize_payload(flat_probs))
+    ql = plan.q_len.astype(np.float64)
+    ul = (plan.regions[:, 1] + plan.regions[:, 3]).astype(np.float64)
+    pairs = float((ql * ul).sum())
+    n_launch = -(-len(ql) // device_fusion.ENTRIES_PER_LAUNCH)
+    queries, _, _, src_t, pay_t = entries
+    regions = plan.regions.tolist()
+    q_lens = plan.q_len.tolist()
+    for k_out in (64, 32):
+        name = f"pair_select k={k_out}"
+        d_k, p_k = select_all(pair_select, entries, k_out)
+        torch.cuda.synchronize()
+        d_p, p_p = select_all(pair_select_plain, entries, k_out)
+        err = check_exact(name, d_k, p_k, d_p, p_p)
+        ms = cuda_ms(lambda: select_all(pair_select, entries, k_out),
+                     reps=5, warmup=1)
+        plain_ms = cuda_ms(lambda: select_all(pair_select_plain, entries,
+                                              k_out), reps=1, warmup=0)
+
+        def library_all():
+            for e, ((of, lf, oc, lc), n_q) in enumerate(zip(regions,
+                                                             q_lens)):
+                u = torch.cat([src_t[of:of + lf], src_t[oc:oc + lc]])
+                up = torch.cat([pay_t[of:of + lf], pay_t[oc:oc + lc]])
+                _, i = torch.topk(torch.cdist(queries[e, :n_q], u),
+                                  min(k_out, lf + lc), dim=-1, largest=False)
+                up[i]
+        lib_ms = cuda_ms(library_all, reps=3, warmup=1)
+        bms, by = bound(
+            8.0 * pairs,
+            float((ql * 12 + ul * 16).sum()) + float(ql.sum()) * k_out * 8)
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda",
+            "source": "pointstowood_tpu_torch/csrc/fusion.cu",
+            "replaces": "pointstowood_tpu/ops/pallas_knn.py:703",
+            "wrapper": "pair_select",
+            "shape": [len(ql), device_fusion.PAIR_QCHUNK, int(ul.max()),
+                      k_out],
+            "entries": len(ql), "live_queries": int(ql.sum()),
+            "distance_pairs": pairs, "launches_per_plot": n_launch,
+            # the wrapper's count on the predict path, which runs k=64
+            # (any-wood 1); k=32 is the any-wood != 1 instantiation
+            "launches": launches["pair_select"],
+            "on_default_path": k_out == 64,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "library_call": "per entry: torch.topk(torch.cdist(q, union), "
+                            "k) + payload gather, over every entry of the "
+                            "plot",
+        })
+        emit("kernel", **rows[-1])
+
+    # ---- 8. pair path vs host path on the plot, structured field
+    t0 = time.perf_counter()
+    fused = device_fusion.fuse_on_device(plan, (flat_xyz, flat_probs),
+                                         query_xyz, 0.5, 1.0, device=dev)
+    pair_s = time.perf_counter() - t0
+    # the host reference is built from the tiles' own points and the field
+    # there, independently of the FlatSink's layout, shifts and writes
+    classified_xyz = np.concatenate(
+        [plot_tiles[t].points[:, :3] for t in batcher.tile_order()])
+    field = trunk_field(classified_xyz, trunks)
+    rng = np.random.default_rng(SEED)
+    pick = np.sort(rng.choice(len(query_xyz), min(50000, len(query_xyz)),
+                              replace=False))
+    classified = np.concatenate(
+        [classified_xyz, (field >= 0.5)[:, None], field[:, None]], axis=1)
+    t0 = time.perf_counter()
+    idx = knn_indices(classified_xyz, query_xyz[pick], 64)
+    host = fuse_labels(classified, query_xyz[pick], 0.5, 1.0, indices=idx,
+                       device=dev)
+    host_s = time.perf_counter() - t0
+    agree = float((fused[pick, 0] == host[:, 0]).mean())
+    dpw = float(np.abs(fused[pick, 1] - host[:, 1]).mean())
+    emit("fusion_crosscheck", sample=len(pick), label_agreement=agree,
+         mean_abs_dpwood=dpw, wood_fraction_host=float(host[:, 0].mean()),
+         pair_path_s=pair_s, host_path_sample_s=host_s,
+         near_rows=plan.n_near)
+    if agree < 0.98 or dpw >= 0.02:
+        raise AssertionError("pair path and host path disagree on the plot")
 
 
 def main() -> int:
@@ -401,7 +683,7 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"{name}: no launch on the main path")
     for row in rows:
-        row["launches"] = launches[row["wrapper"]]
+        row["launches_forward"] = launches[row["wrapper"]]
 
     refl = torch.from_numpy(batch.reflectance).to(dev)
     sf = torch.from_numpy(batch.sf).to(dev)
@@ -471,7 +753,9 @@ def main() -> int:
     if agree < 0.995 or p99 > 0.02:
         raise AssertionError("CPU and card disagree on the full tile")
 
-    # ---- 6. results
+    serving_phases(net, dev, smi, rows, wrappers)
+
+    # ---- 9. results
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": rows}, f, indent=1)

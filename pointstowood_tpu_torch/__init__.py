@@ -2,18 +2,23 @@
 
 The JAX package ``pointstowood_tpu`` stays the reference; this package
 mirrors its module names (``ops/knn.py`` <-> ``ops/knn.py``, ...) so each
-counterpart is easy to find. It imports ``torch`` and never ``jax`` or
-anything of ``pointstowood_tpu``.
+counterpart is easy to find. It imports ``torch``, numpy and scipy, and
+never ``jax``, pandas or anything of ``pointstowood_tpu``.
 
-The hot path is the batched eval forward of ``model.Net`` over padded tile
-batches, driven by ``predict.run_inference``. The four Pallas kernels on
-that path are replaced by hand-written CUDA kernels for Hopper (sm_90a)
-in ``csrc/``, built with nvcc on first use (``ops/build.py``). Every
-kernel wrapper runs its plain PyTorch version only for CPU tensors; for a
-CUDA tensor it launches the kernel or raises.
+The serving path is ``cli/predict.py``: a PLY/PCD cloud is read into a
+column table (``io/``), tiled on the dual grid (``data/tiling.py``),
+classified by the eval forward of ``model.Net`` over padded tile batches
+(``predict.run_inference``), and fused onto every original point on the
+device (``predict/device_fusion.py``) before the labelled PLY is
+written. The Pallas kernels on that path are replaced by hand-written
+CUDA kernels for Hopper (sm_90a) in ``csrc/``, built with nvcc on first
+use (``ops/build.py``). Every kernel wrapper runs its plain PyTorch
+version only for CPU tensors; for a CUDA tensor it launches the kernel
+or raises.
 
-Entry points (``predict.build_net``, ``predict.run_inference``) run on
-``cuda`` unless the caller passes ``device="cpu"``.
+Entry points (``cli.predict.main``, ``predict.semantic_segmentation``,
+``predict.build_net``, ``predict.run_inference``, ``fuse_on_device``)
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Typed configuration for the inference path (copy of
+"""Typed configuration of the serving path (copy of
 pointstowood_tpu/config.py's TilingConfig, ModelConfig and PredictConfig;
 the training config waits for the training slice of the port).
 """
@@ -78,6 +78,8 @@ class PredictConfig:
     # Compute dtype for the forward pass. The reference infers under AMP
     # (fp16); the port follows the JAX package with bf16.
     dtype: str = "bfloat16"
-    # Fusion neighbor search mode of the JAX package (predict/fusion.py);
-    # fusion is not ported yet, the field is kept for config parity.
+    # Fusion path: 'auto' takes the device pair path
+    # (predict/device_fusion.py) where the tiling allows it, else the host
+    # path (predict/fusion.py); 'tpu' (the JAX flag's spelling) demands the
+    # pair path; 'host' takes the host path.
     fusion: str = "auto"

@@ -1,0 +1,13 @@
+from pointstowood_tpu_torch.io.loader import load_file, save_file
+from pointstowood_tpu_torch.io.pcd import read_pcd, write_pcd
+from pointstowood_tpu_torch.io.ply import n_rows, read_ply, write_ply
+
+__all__ = [
+    "load_file",
+    "save_file",
+    "n_rows",
+    "read_ply",
+    "write_ply",
+    "read_pcd",
+    "write_pcd",
+]

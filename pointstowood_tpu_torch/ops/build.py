@@ -31,7 +31,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("knn", "interp")
+SOURCES = ("knn", "interp", "fusion")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -45,6 +45,9 @@ _SIGNATURES = {
     },
     "interp": {
         "ptw_interp_blend": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "fusion": {
+        "ptw_pair_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

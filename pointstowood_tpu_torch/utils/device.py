@@ -1,0 +1,17 @@
+"""Device choice of the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else CUDA. Raises when CUDA is asked for (or
+    defaulted to) and absent: the entry points never fall back to the CPU
+    silently; pass ``device="cpu"`` for the plain versions."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU")
+    return dev

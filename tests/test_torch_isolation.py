@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, its entry points refuse to fall back to the CPU silently, and
-``chip_smoke.py`` fails without a card or without the repo around it."""
+"""The PyTorch port stands alone: it imports neither JAX, pandas nor the
+JAX package (the card's machine has none of them), its entry points
+refuse to fall back to the CPU silently, and ``chip_smoke.py`` fails
+without a card or without the repo around it."""
 
 import ast
 import os
@@ -24,9 +25,10 @@ def _is_jax_package(name: str) -> bool:
 
 
 def _is_jax(name: str) -> bool:
-    return name == "jax" or name.startswith("jax.") or name == "jaxlib" \
-        or name.startswith("jaxlib.") or name == "flax" \
-        or name.startswith("flax.")
+    """jax, jaxlib, flax, and pandas (which the port replaces with column
+    tables)."""
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "jaxlib", "flax", "pandas"))
 
 
 def _port_modules():
@@ -43,15 +45,17 @@ def _port_modules():
 def test_prefix_matcher():
     assert _is_jax_package("pointstowood_tpu")
     assert _is_jax_package("pointstowood_tpu.ops.knn")
+    assert _is_jax("pandas") and _is_jax("pandas.core.frame")
+    assert _is_jax("flax.linen") and not _is_jax("jaxtyping")
     assert not _is_jax_package("pointstowood_tpu_torch")
     assert not _is_jax_package("pointstowood_tpu_torch.ops.knn")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of the port in a fresh interpreter, then look at
-    sys.modules."""
+    sys.modules (for jax, flax, pandas and the JAX package)."""
     mods = _port_modules()
-    assert len(mods) >= 15
+    assert len(mods) >= 25
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -68,6 +72,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not [m for m in loaded if _is_jax(m)]
     assert not [m for m in loaded if _is_jax_package(m)]
     assert "pointstowood_tpu_torch.predict.predicter" in loaded
+    assert "pointstowood_tpu_torch.cli.predict" in loaded
 
 
 def _imports(path):
@@ -125,6 +130,69 @@ def test_kernel_wrappers_never_run_plain_on_cuda_tensors():
         interp_blend(torch.zeros((1, 8, 8), device="meta"),
                      torch.zeros((1, 8, 2), dtype=torch.int32, device="meta"),
                      torch.zeros((1, 8, 2), device="meta"), m)
+
+
+def test_pair_select_never_runs_plain_on_non_cpu_tensors():
+    from pointstowood_tpu_torch.ops.fusion_kernels import pair_select
+
+    def meta(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    with pytest.raises(RuntimeError, match="no kernel"):
+        pair_select(meta((2, 16, 3)), meta((2,), torch.int32),
+                    meta((40, 3)), meta((40,), torch.int32),
+                    meta((2, 4), torch.int32), 32)
+
+
+def _tiny_plot():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(0, 4, (600, 3))
+    return {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+            "reflectance": rng.normal(size=600)}
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """semantic_segmentation, fuse_on_device and the CLI's main default to
+    CUDA and raise without it; with device="cpu" they run."""
+    import numpy as np
+
+    from pointstowood_tpu_torch.cli import predict as cli
+    from pointstowood_tpu_torch.config import (
+        ModelConfig,
+        PredictConfig,
+        TilingConfig,
+    )
+    from pointstowood_tpu_torch.data.tiling import preprocess_cloud
+    from pointstowood_tpu_torch.io import write_ply
+    from pointstowood_tpu_torch.predict import device_fusion, predicter
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pc = _tiny_plot()
+    cfg = TilingConfig(grid_size=(2.0, 4.0), min_pts=32, max_pts=256)
+    tiles = preprocess_cloud(pc, cfg)
+    batcher = predicter.tile_batcher(tiles, PredictConfig(), cfg)
+    sink = device_fusion.sink_for(tiles, batcher, "cpu")
+    for _, batch, _ in batcher:
+        sink.write(torch.from_numpy(batch.pos), batch.shift,
+                   torch.full(batch.mask.shape, 0.5))
+    xyz = np.stack([pc["x"], pc["y"], pc["z"]], 1)
+    plan = device_fusion.plan_fusion(tiles, xyz, 32, sink.layout)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_fusion.fuse_on_device(plan, sink.arrays(), xyz, 0.5, 1.0)
+    fused = device_fusion.fuse_on_device(plan, sink.arrays(), xyz, 0.5, 1.0,
+                                         device="cpu")
+    assert fused.shape == (600, 2)
+    net = predicter.build_net(ModelConfig(channels=8), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predicter.semantic_segmentation(pc, tiles, net, PredictConfig(), cfg)
+    write_ply(str(tmp_path / "p.ply"), pc)
+    torch.save({"model_state_dict": net.state_dict()},
+               str(tmp_path / "m.pth"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--point-cloud", str(tmp_path / "p.ply"),
+                  "--model", str(tmp_path / "m.pth")])
 
 
 def _run_smoke(cwd):
