@@ -44,8 +44,34 @@ exits non-zero and prints no final line):
                host path (exact scipy kNN + median/vote over the tiles'
                own points and the field there) on a seeded sample of
                50 000 query rows.
-9. the ``{"kernels": [...]}`` line, then the card's nvidia-smi line, then
-   the final ``{"ok": true, "device": {...}}`` line.
+9. kernel (interp_blend_bwd) -- the interpolation backward kernel at the
+               train shapes (B=8, C=512, bf16, random 50% centres): FP3
+               4096 <- 2048 on the fused route's top-2, FP2 8192 <- 4096
+               and FP1 16384 <- 8192 on the SA transpose neighbours; held
+               against ``blend_bwd_plain`` within one bf16 step (the fp32
+               sums run in atomic order); time, bound, plain version, and
+               one ``index_add_`` of the pre-weighted rows as yardstick.
+10. train_crosscheck -- one fp32 train step (fast kNN, centres supplied)
+               on one full 16384-point tile on the CPU (plain versions) and
+               on the card (kernels; FP3 fused, so the backward kernel runs
+               at both of its routes): loss, logits, every gradient and the
+               new BatchNorm statistics agree within
+               ``CROSSCHECK_TOLERANCES``.
+11. train_step -- ten train steps of B=8 x 16384, C=32, bf16, fast kNN with
+               seeded weights and labels: median step time, split into
+               forward, backward and optimizer; points/s; peak memory;
+               every train-path kernel's launch counter must grow (the
+               backward's included). Then (phase ``train_profile``) one
+               step's device time by kernel family under torch.profiler,
+               with its idle share.
+12. train    -- ``cli.train.main`` with the default flags and 2 epochs on a
+               labelled synthetic plot of another seed (truth: the trunk
+               points); the loss is finite and falls from epoch 1 to 2,
+               and ``cli.predict.main`` serves the trained ``.pth`` on the
+               predict phase's plot, scored by balanced accuracy.
+13. the ``{"kernels": [...]}`` line (every CUDA kernel's rows), then the
+   card's nvidia-smi line, then the final ``{"ok": true, "device":
+   {...}}`` line.
 
 A copy of every printed record goes to ``build/chip_smoke.json``.
 The script imports nothing of JAX, nothing of pandas and nothing of the
@@ -214,9 +240,10 @@ def synthetic_plot(seed: int, n_side: int = 6):
     """A plot of n_side x n_side trees (trunk + crown) on a jittered 4 m
     grid over a ground layer, as a column table {x, y, z, intensity}; wood
     (trunk) is bright, leaves dark, ground in between. n_side = 6: 24 m x
-    24 m, about 1.2 M points. Also returns the trunk axes' (x, y)."""
+    24 m, about 1.2 M points. Also returns the trunk axes' (x, y) and the
+    truth: True for trunk points (wood)."""
     rng = np.random.default_rng(seed)
-    cols, refl, axes = [], [], []
+    cols, refl, axes, wood = [], [], [], []
     side = 4.0 * n_side
     for i in range(n_side * n_side):
         cx = 2.0 + 4.0 * (i % n_side) + rng.uniform(-0.8, 0.8)
@@ -230,22 +257,26 @@ def synthetic_plot(seed: int, n_side: int = 6):
         cols.append(np.stack([cx + r * np.cos(theta), cy + r * np.sin(theta),
                               rng.uniform(0, h, n_trunk)], 1))
         refl.append(rng.normal(2, 0.3, n_trunk))
+        wood.append(np.ones(n_trunk, bool))
         cols.append(np.stack([cx + rng.normal(0, 1.4, n_crown),
                               cy + rng.normal(0, 1.4, n_crown),
                               h - 2 + rng.normal(0, 1.2, n_crown)], 1))
         refl.append(rng.normal(-1, 0.5, n_crown))
+        wood.append(np.zeros(n_crown, bool))
     n_ground = int(130000 * (n_side / 6) ** 2)
     cols.append(np.stack([rng.uniform(0, side, n_ground),
                           rng.uniform(0, side, n_ground),
                           rng.normal(0, 0.05, n_ground)], 1))
     refl.append(rng.normal(0.5, 0.5, n_ground))
+    wood.append(np.zeros(n_ground, bool))
     xyz = np.concatenate(cols)
     perm = rng.permutation(len(xyz))
     xyz, refl = xyz[perm], np.concatenate(refl)[perm]
+    wood = np.concatenate(wood)[perm]
     table = {"x": xyz[:, 0] + 500.0, "y": xyz[:, 1] + 300.0,
              "z": xyz[:, 2] + 20.0, "intensity": refl}
     trunks = np.asarray(axes) + np.array([500.0, 300.0])
-    return table, trunks
+    return table, trunks, wood
 
 
 def trunk_field(xyz: np.ndarray, trunks: np.ndarray) -> np.ndarray:
@@ -323,7 +354,8 @@ def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
     """Phases 6-8: the predict CLI over the synthetic plot (n_side x
     n_side trees), ``pair_select`` on its entries, and the pair path
     against the host path. Appends the pair_select rows to ``rows`` and
-    sets every row's ``launches`` from the predict run."""
+    sets every row's ``launches`` from the predict run. Returns the plot's
+    PLY path and its truth (wood) column."""
     import torch
 
     from pointstowood_tpu_torch.cli import predict as predict_cli
@@ -346,7 +378,7 @@ def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
     # ---- 6. the serving path: cli.predict.main over a ~1.2 M-point plot
     work = os.path.join(ROOT, "build", "chip_smoke_plot")
     os.makedirs(work, exist_ok=True)
-    plot, trunks = synthetic_plot(SEED, n_side)
+    plot, trunks, wood = synthetic_plot(SEED, n_side)
     ply_path = os.path.join(work, "plot.ply")
     write_ply(ply_path, plot)
     model_path = os.path.join(work, "model.pth")
@@ -493,6 +525,485 @@ def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
          near_rows=plan.n_near)
     if agree < 0.98 or dpw >= 0.02:
         raise AssertionError("pair path and host path disagree on the plot")
+    return ply_path, wood
+
+
+# ---------------------------------------------------------------- training
+
+
+def supplied_centres(mask, capacity, generator=None, fraction=0.5):
+    """Centre rule for the CPU-vs-card crosscheck: the first
+    floor(n_valid * fraction) valid points of each row by a fixed numpy
+    score, drawn on the host, so both devices train on the same centres.
+    Same signature and result contract as ``ops.sampling.random_sample``."""
+    import torch
+
+    from pointstowood_tpu_torch.ops.sampling import compact_indices
+
+    m = mask.cpu()
+    n = m.shape[1]
+    score = torch.from_numpy(
+        np.random.default_rng(1000 + n).random(n).astype(np.float32))
+    n_take = torch.clamp((m.sum(-1) * fraction).long(), max=capacity)
+    order = torch.argsort(torch.where(m, score, torch.inf), dim=-1,
+                          stable=True)
+    select = torch.zeros_like(m).scatter(
+        1, order, torch.arange(n) < n_take[:, None])
+    idx, valid = compact_indices(select, capacity)
+    return idx.to(mask.device), valid.to(mask.device)
+
+
+def train_geometry(pos, mask, caps, gen):
+    """(idx, d2, target mask, n_src) of the three FP stages of a training
+    forward: random 50% centres per level; FP3 takes the fused route
+    (``knn_top2`` of its targets among its sources), FP2 and FP1 the SA
+    stage's transpose top-2 (``knn_top2`` with rows = the level's points,
+    columns = its centres)."""
+    from pointstowood_tpu_torch.model.pointconv import gather_rows
+    from pointstowood_tpu_torch.ops.knn_kernels import knn_top2
+    from pointstowood_tpu_torch.ops.sampling import random_sample
+
+    levels = [(pos, mask)]
+    for cap in caps:
+        p, m = levels[-1]
+        cidx, cval = random_sample(m, cap, gen)
+        levels.append((gather_rows(p, cidx).contiguous(), cval))
+    out = {}
+    for name, lvl in (("FP3", 2), ("FP2", 1), ("FP1", 0)):
+        (tp, tm), (sp, sm) = levels[lvl], levels[lvl + 1]
+        d2, idx = knn_top2(tp, sp, sm)
+        out[name] = (idx, d2, tm, sp.shape[1])
+    return out
+
+
+def check_blend_bwd(name, d_k, d_p):
+    """Kernel vs plain backward: every contribution is rounded alike, but
+    the fp32 sums into one source row are taken in another (atomic) order,
+    and the sum is then rounded to bf16. Tolerance: one bf16 step of the
+    value (2^-7 |p|) plus 1e-5 of the largest |p| for the reordered fp32
+    sum. Returns the largest absolute difference."""
+    import torch
+
+    k, p = d_k.float(), d_p.float()
+    if not bool(torch.isfinite(k).all()):
+        raise AssertionError(f"{name}: non-finite gradient")
+    err = (k - p).abs()
+    tol = 2.0 ** -7 * p.abs() + 1e-5 * float(p.abs().max())
+    if bool((err > tol).any()):
+        raise AssertionError(f"{name}: differs from the plain version by "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def blend_bwd_rows(dev, rows, seed):
+    """Phase 9: ``interp_blend_bwd`` at the train shapes (B=8, C=512 bf16;
+    FP3 4096 <- 2048 fused, FP2 8192 <- 4096 and FP1 16384 <- 8192 on the
+    transpose neighbours), held against ``blend_bwd_plain``."""
+    import torch
+
+    from pointstowood_tpu_torch.data.dataset import pad_tiles
+    from pointstowood_tpu_torch.ops.interp_kernels import (
+        blend_bwd_plain,
+        interp_blend_bwd,
+    )
+
+    tiles = synthetic_tiles(seed)
+    batch = pad_tiles([t.points for t in tiles if len(t) == 16384][:8], 16384)
+    pos = torch.from_numpy(batch.pos).to(dev)
+    mask = torch.from_numpy(batch.mask).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    geo = train_geometry(pos, mask, (8192, 4096, 2048), gen)
+    c = 512
+    for name in ("FP3", "FP2", "FP1"):
+        idx, d2, tm, n_src = geo[name]
+        bsz, n_t = idx.shape[:2]
+        d_y = torch.randn((bsz, n_t, c), generator=gen, device=dev).to(
+            torch.bfloat16)
+        d_k = interp_blend_bwd(d_y, idx, d2, tm, n_src)
+        torch.cuda.synchronize()
+        d_p = blend_bwd_plain(d_y, idx, d2, tm, n_src)
+        err = check_blend_bwd(f"interp_blend_bwd {name}", d_k, d_p)
+        ms = cuda_ms(lambda: interp_blend_bwd(d_y, idx, d2, tm, n_src))
+        plain_ms = cuda_ms(lambda: blend_bwd_plain(d_y, idx, d2, tm, n_src),
+                           reps=5)
+        # yardstick: one index_add_ of the pre-weighted rows of the live
+        # slots into an fp32 (B * S, C) buffer
+        w = torch.where(torch.isfinite(d2), 1.0 / torch.clamp(d2, min=1e-16),
+                        0.0)
+        den = torch.clamp(w.sum(-1, keepdim=True), min=1e-16)
+        live = (w > 0) & tm[..., None]
+        flat = (idx.long() + (torch.arange(bsz, device=dev)
+                              * n_src)[:, None, None])[live]
+        wrows = ((w / den)[..., None] * d_y.float()[:, :, None, :])[live]
+        acc = torch.zeros((bsz * n_src, c), device=dev)
+        lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, wrows))
+        n_live, n_tgt = int(live.sum()), int(tm.sum())
+        bms, by = bound(2.0 * n_live * c + n_tgt * c,
+                        bsz * n_t * c * 2 + bsz * n_t * 2 * (4 + 4)
+                        + bsz * n_src * c * 2)
+        rows.append({
+            "name": f"interp_blend_bwd {name}", "check": "ok", "route": "cuda",
+            "source": "pointstowood_tpu_torch/csrc/interp.cu",
+            "replaces": "pointstowood_tpu/ops/pallas_interp.py:207",
+            "jax_route": ("fp_interpolate_fast custom VJP (Pallas)"
+                          if name == "FP3" else
+                          "gather VJP, XLA scatter-add "
+                          "(pointstowood_tpu/model/pointconv.py:85-103)"),
+            "wrapper": "interp_blend_bwd", "shape": [bsz, n_t, n_src, c],
+            "live_slots": n_live, "max_abs_err": err,
+            "tolerance": "2^-7 |plain| + 1e-5 max|plain| (bf16 rounding of "
+                         "an fp32 sum taken in atomic order)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms,
+            "library_call": "Tensor.index_add_ of the pre-weighted live "
+                            "rows into an fp32 (B*S, C) buffer",
+        })
+        emit("kernel", **rows[-1])
+
+
+def rel_l1(a, b) -> float:
+    den = float(b.abs().sum())
+    return float((a - b).abs().sum()) / den if den else float(a.abs().sum())
+
+
+# CPU vs card, one fp32 train step. The forward agrees to fp32 rounding;
+# ~45 batch-statistic BatchNorms and masked maxima amplify that rounding
+# on the way back to the encoder (the CPU tests measure the JAX package at
+# up to ~6% relative L1 against itself when only the order of a batch
+# changes), so the encoder's gradients are held to a few %, the head's and
+# the loss to fp32 rounding.
+CROSSCHECK_TOLERANCES = {
+    "loss_rel": 1e-5, "logits_mean_abs": 1e-3, "logits_max_abs": 0.05,
+    "grads_rel_l1_total": 0.06, "grads_rel_l1_tensor": 0.2,
+    "grads_rel_l1_conv2": 1e-4, "running_stats_rel": 1e-4,
+}
+
+
+def train_crosscheck(dev, seed):
+    """Phase 10: one fp32 train step (fast kNN, centres supplied) on one
+    full 16384-point tile, on the CPU (plain versions) and on the card
+    (kernels); FP3 takes the fused route only at this size. Returns the
+    record."""
+    import torch
+
+    from pointstowood_tpu_torch.config import ModelConfig, TrainConfig
+    from pointstowood_tpu_torch.data.dataset import pad_tiles
+    from pointstowood_tpu_torch.model import network
+    from pointstowood_tpu_torch.train import trainer
+    from pointstowood_tpu_torch.utils.checkpoint_convert import (
+        state_dict_from_flax,
+    )
+
+    tiles = synthetic_tiles(seed)
+    batch = pad_tiles([tiles[0].points], 16384, with_labels=False)
+    rng = np.random.default_rng(seed)
+    labels = (batch.reflectance > 0.5).astype(np.float32)
+    flip = rng.random(labels.shape) < 0.1
+    labels = np.where(flip, 1 - labels, labels).astype(np.float32)
+    cfg = TrainConfig(learning_rate=1e-3)
+    base = trainer.build_train_net(ModelConfig(compute_dtype="float32"), seed,
+                                   device="cpu")
+    base.load_state_dict(state_dict_from_flax(seeded_flax_variables(base,
+                                                                    seed)))
+    if base.stage_routes(16384, training=True) != ["transpose", "transpose",
+                                                    "fused"]:
+        raise AssertionError("train routes at N=16384 are not "
+                             "transpose/transpose/fused")
+    results = {}
+    saved_rule, saved_clip = network.random_sample, trainer.clip_by_global_norm_
+    try:
+        network.random_sample = supplied_centres
+        for where in ("cpu", "cuda"):
+            net = copy.deepcopy(base).to(where)
+            opt = trainer.make_optimizer(net, cfg)
+            rec = {}
+
+            def recording_clip(grads, max_norm, rec=rec):
+                rec["grads"] = [g.detach().cpu().clone() for g in grads]
+                return saved_clip(grads, max_norm)
+
+            trainer.clip_by_global_norm_ = recording_clip
+            hook = net.register_forward_hook(
+                lambda m, i, o, rec=rec: rec.__setitem__(
+                    "logits", o.detach().cpu().clone()))
+            step = trainer.make_train_step(net, opt, cfg)
+            args = [torch.from_numpy(a).to(where) for a in
+                    (batch.pos, batch.reflectance, batch.mask, batch.sf,
+                     labels)]
+            gen = torch.Generator(device=where)
+            t0 = time.perf_counter()
+            loss, _, finite = step(*args, cfg.learning_rate, gen)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t0
+            hook.remove()
+            if not finite:
+                raise AssertionError(f"train_crosscheck: non-finite step "
+                                     f"on {where}")
+            rec["loss"] = float(loss)
+            rec["state"] = {k: v.detach().cpu().clone()
+                            for k, v in net.state_dict().items()}
+            rec["names"] = [n for n, _ in net.named_parameters()]
+            results[where] = rec
+    finally:
+        network.random_sample = saved_rule
+        trainer.clip_by_global_norm_ = saved_clip
+    cpu, gpu = results["cpu"], results["cuda"]
+    m = torch.from_numpy(batch.mask)
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    dl = (gpu["logits"] - cpu["logits"]).abs()[m]
+    logit_scale = float(cpu["logits"].abs()[m].max())
+    grads_c = dict(zip(cpu["names"], cpu["grads"]))
+    grads_g = dict(zip(gpu["names"], gpu["grads"]))
+    per = {k: rel_l1(grads_g[k], grads_c[k]) for k in grads_c
+           if float(grads_c[k].abs().max()) > 0}
+    total = (sum(float((grads_g[k] - grads_c[k]).abs().sum()) for k in per)
+             / sum(float(grads_c[k].abs().sum()) for k in per))
+    stats = max(float(((gpu["state"][k] - cpu["state"][k]).abs()
+                       / (cpu["state"][k].abs() + 1)).max())
+                for k in cpu["state"] if "running" in k)
+    # per tensor, over the tensors that carry >= 0.1% of the gradient's
+    # L1 mass: the others are biases right in front of a batch-statistic
+    # BatchNorm, whose true gradient is 0 and whose computed one is
+    # rounding noise on both devices
+    mass = sum(float(g.abs().sum()) for g in grads_c.values())
+    carried = {k: v for k, v in per.items()
+               if float(grads_c[k].abs().sum()) >= 1e-3 * mass}
+    worst = sorted(carried.items(), key=lambda kv: -kv[1])[:5]
+    rec = emit("train_crosscheck", points=int(batch.mask.sum()),
+               loss_cpu=cpu["loss"], loss_card=gpu["loss"],
+               loss_rel=loss_rel, logits_max_abs=float(dl.max()),
+               logits_mean_abs=float(dl.mean()), logits_max=logit_scale,
+               grads_rel_l1_total=total, grads_rel_l1_worst=worst,
+               grads_tensors_checked=len(carried),
+               grads_rel_l1_conv2=per["conv2.weight"],
+               running_stats_max_rel=stats, cpu_step_s=cpu["seconds"],
+               card_step_s=gpu["seconds"],
+               tolerances=CROSSCHECK_TOLERANCES)
+    tol = CROSSCHECK_TOLERANCES
+    checks = {
+        "loss_rel": loss_rel <= tol["loss_rel"],
+        "logits_mean_abs": float(dl.mean()) <= tol["logits_mean_abs"],
+        "logits_max_abs": float(dl.max()) <= tol["logits_max_abs"],
+        "grads_rel_l1_total": total <= tol["grads_rel_l1_total"],
+        "grads_rel_l1_tensor": all(v <= tol["grads_rel_l1_tensor"]
+                                   for v in carried.values()),
+        "grads_rel_l1_conv2": per["conv2.weight"] <= tol["grads_rel_l1_conv2"],
+        "running_stats_rel": stats <= tol["running_stats_rel"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_crosscheck: CPU and card disagree on "
+                             f"{failed}")
+    return rec
+
+
+def train_step_phase(dev, smi, wrappers, seed):
+    """Phase 11: B=8 x 16384, C=32, bf16, fast kNN train steps with seeded
+    weights and labels: median step time, split into forward, backward
+    and optimizer; points/s; peak memory; every train-path kernel's
+    launch counter; then one step under torch.profiler."""
+    import torch
+
+    from pointstowood_tpu_torch.config import ModelConfig, TrainConfig
+    from pointstowood_tpu_torch.data.dataset import pad_tiles
+    from pointstowood_tpu_torch.train import trainer
+    from pointstowood_tpu_torch.train.loss import poly1_focal_loss
+    from pointstowood_tpu_torch.utils.checkpoint_convert import (
+        state_dict_from_flax,
+    )
+
+    tiles = synthetic_tiles(seed)
+    batch = pad_tiles([t.points for t in tiles if len(t) == 16384][:8],
+                      16384)
+    labels = np.random.default_rng(seed).random(batch.mask.shape) < 0.3
+    args = [torch.from_numpy(a).to(dev) for a in
+            (batch.pos, batch.reflectance, batch.mask, batch.sf,
+             labels.astype(np.float32))]
+    cfg = TrainConfig()
+    net = trainer.build_train_net(ModelConfig(), seed, device=dev)
+    net.load_state_dict(state_dict_from_flax(seeded_flax_variables(net,
+                                                                   seed)))
+    opt = trainer.make_optimizer(net, cfg)
+    step = trainer.make_train_step(net, opt, cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lr = 1e-4
+    step(*args, lr, gen)  # warm-up (allocator, first launches)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, skipped = [], [], 0
+    for _ in range(10):
+        t0 = time.perf_counter()
+        loss, _, finite = step(*args, lr, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        skipped += not finite
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the split: forward + loss alone, then with the backward; the
+    # optimizer (finite check, clip, AdamW) is the rest of the full step
+    def forward():
+        logits = net(*args[:4], training=True, generator=gen)
+        return poly1_focal_loss(logits, args[4], label_smoothing=0.1,
+                                mask=args[2])[0]
+
+    def timed(fn, reps=10):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    fwd_ms = timed(forward)
+    fwd_bwd_ms = timed(lambda: forward().backward())
+    opt.zero_grad(set_to_none=False)
+    step_ms = statistics.median(times)
+    n_valid = float(batch.mask.sum())
+    rec = emit("train_step", nvidia_smi=smi, batch=[8, 16384],
+               channels=net.channels, dtype="bfloat16",
+               step_ms=step_ms, step_ms_all=times,
+               forward_ms=fwd_ms, backward_ms=fwd_bwd_ms - fwd_ms,
+               optimizer_ms=step_ms - fwd_bwd_ms,
+               points_per_s=n_valid / (step_ms / 1e3),
+               max_memory_gib=peak, launches=launches,
+               launches_per_step={k: v / 10 for k, v in launches.items()},
+               losses=losses, parameters=sum(p.numel()
+                                             for p in net.parameters()))
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no launch on the train path")
+    if skipped or not np.isfinite(losses).all():
+        raise AssertionError("train_step: non-finite step")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*args, lr, gen)
+        torch.cuda.synchronize()
+    # device events only, without the optimizer's user annotation (a span
+    # over the whole optimizer step, gaps included)
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)
+                   and not ev.name.startswith("Optimizer."))
+    by_kernel: dict = {}
+    by_family: dict = {}
+    busy_us, cur_end = 0.0, None
+    for start, end, name in spans:
+        ms = (end - start) / 1e3
+        by_kernel[name] = by_kernel.get(name, 0.0) + ms
+        fam = kernel_family(name)
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+        if cur_end is None or start > cur_end:
+            busy_us += end - start
+            cur_end = end
+        elif end > cur_end:
+            busy_us += end - cur_end
+            cur_end = end
+    span_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    emit("train_profile", device_events=len(spans),
+         device_busy_ms=busy_us / 1e3 if spans else None,
+         device_span_ms=span_us / 1e3 if spans else None,
+         idle_share=(1 - busy_us / span_us) if span_us else None,
+         families_ms=sorted(by_family.items(), key=lambda kv: -kv[1]),
+         top_kernels_ms=sorted(by_kernel.items(),
+                               key=lambda kv: -kv[1])[:20])
+    return rec, launches
+
+
+def kernel_family(name: str) -> str:
+    """Coarse family of a CUDA kernel name, for the train-step breakdown."""
+    low = name.lower()
+    for fam, keys in (
+            ("port kernels (csrc/*.cu)", ("knn_select", "knn_top2",
+                                          "interp_blend", "cast_bf16",
+                                          "pair_select")),
+            ("GEMM", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
+            ("optimizer (foreach)", ("multi_tensor", "foreach")),
+            ("copies and casts", ("copy_kernel", "direct_copy", "memcpy",
+                                  "memset", "catarraybatchedcopy",
+                                  "fill_kernel")),
+            ("index, gather, scatter", ("index", "gather", "scatter")),
+            ("reductions", ("reduce",)),
+            ("sort", ("sort", "radix")),
+            ("elementwise", ("elementwise", "vectorized", "unrolled"))):
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def train_cli_phase(dev, smi, wrappers, eval_ply, eval_wood, n_side=6):
+    """Phase 12: ``cli.train.main`` with the default flags and 2 epochs on
+    a labelled synthetic plot (another seed than the predict phase's;
+    truth = trunk points), then ``cli.predict.main`` with the trained
+    ``.pth`` on the predict phase's plot, scored against its truth."""
+    import shutil
+
+    import torch
+
+    from pointstowood_tpu_torch.cli import predict as predict_cli
+    from pointstowood_tpu_torch.cli import train as train_cli
+    from pointstowood_tpu_torch.data.tiling import load_tiles
+    from pointstowood_tpu_torch.io import read_ply, write_ply
+
+    wdir = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(wdir, ignore_errors=True)
+    os.makedirs(os.path.join(wdir, "data", "train"))
+    plot, _, wood = synthetic_plot(SEED + 1, n_side)
+    plot["truth"] = wood.astype(np.float64)
+    write_ply(os.path.join(wdir, "data", "train", "plot_train.ply"), plot)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = train_cli.main(["--wdir", wdir, "--preprocess",
+                              "--num_epochs", "2"], device=dev)
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    n_tiles = len(load_tiles(os.path.join(wdir, "data", "train", "voxels")))
+    steps = 2 * -(-n_tiles // 2)
+    losses = [row[2] for row in history]
+    model = os.path.join(wdir, "model", "model.pth")
+
+    t1 = time.perf_counter()
+    (rec,) = predict_cli.main(["--point-cloud", eval_ply, "--model", model],
+                              device=dev)
+    pred_s = time.perf_counter() - t1
+    labels = read_ply(rec["output"])["label"] > 0.5
+    tpr = float((labels & eval_wood).sum() / max(eval_wood.sum(), 1))
+    tnr = float((~labels & ~eval_wood).sum() / max((~eval_wood).sum(), 1))
+    rec = emit("train", nvidia_smi=smi, plot_points=len(wood),
+                wood_fraction=float(wood.mean()), tiles=n_tiles,
+                wall_s=wall_s, steps=steps, steps_per_s=steps / wall_s,
+                history=history, loss_per_epoch=losses,
+                ba_per_epoch=[row[3] for row in history],
+                launches=launches,
+                max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                predict_s=pred_s, eval_points=len(eval_wood),
+                eval_wood_fraction=float(labels.mean()),
+                eval_balanced_accuracy=(tpr + tnr) / 2,
+                eval_recall_wood=tpr, eval_recall_leaf=tnr)
+    if not (np.isfinite(np.asarray(history)).all() and len(history) == 2):
+        raise AssertionError(f"train: bad history {history}")
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no launch in the train CLI run")
+    return rec
 
 
 def main() -> int:
@@ -753,9 +1264,25 @@ def main() -> int:
     if agree < 0.995 or p99 > 0.02:
         raise AssertionError("CPU and card disagree on the full tile")
 
-    serving_phases(net, dev, smi, rows, wrappers)
+    eval_ply, eval_wood = serving_phases(net, dev, smi, rows, wrappers)
 
-    # ---- 9. results
+    # ---- 9-12. training
+    from pointstowood_tpu_torch.ops.interp_kernels import interp_blend_bwd
+
+    n_fwd = len(rows)
+    blend_bwd_rows(dev, rows, SEED)
+    train_crosscheck(dev, SEED)
+    train_wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
+                      "interp_blend": interp_blend,
+                      "interp_blend_bwd": interp_blend_bwd}
+    _, step_launches = train_step_phase(dev, smi, train_wrappers, SEED)
+    for row in rows:
+        row["launches_train_step"] = step_launches.get(row["wrapper"], 0)
+    for row in rows[n_fwd:]:
+        row["launches"] = step_launches["interp_blend_bwd"]
+    train_cli_phase(dev, smi, train_wrappers, eval_ply, eval_wood)
+
+    # ---- 13. results
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": rows}, f, indent=1)

@@ -16,9 +16,18 @@ use (``ops/build.py``). Every kernel wrapper runs its plain PyTorch
 version only for CPU tensors; for a CUDA tensor it launches the kernel
 or raises.
 
-Entry points (``cli.predict.main``, ``predict.semantic_segmentation``,
-``predict.build_net``, ``predict.run_inference``, ``fuse_on_device``)
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+The training path is ``cli/train.py``: labelled PLYs are tiled the same
+way and ``train.trainer.semantic_training`` trains the Net (random 50%
+centres, masked batch-statistic BatchNorm, Poly1 focal loss, AdamW behind
+global-norm clipping) into a reference-layout ``.pth`` that the predict
+CLI serves. Its one extra kernel is the backward of the interpolation
+blend (``ops/interp_kernels.interp_blend_bwd``).
+
+Entry points (``cli.predict.main``, ``cli.train.main``,
+``predict.semantic_segmentation``, ``predict.build_net``,
+``predict.run_inference``, ``fuse_on_device``,
+``train.trainer.semantic_training``) run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,5 @@
-"""Typed configuration of the serving path (copy of
-pointstowood_tpu/config.py's TilingConfig, ModelConfig and PredictConfig;
-the training config waits for the training slice of the port).
+"""Typed configuration of the port (copy of pointstowood_tpu/config.py's
+TilingConfig, ModelConfig, PredictConfig and TrainConfig).
 """
 
 from __future__ import annotations
@@ -83,3 +82,25 @@ class PredictConfig:
     # path (predict/fusion.py); 'tpu' (the JAX flag's spelling) demands the
     # pair path; 'host' takes the host path.
     fusion: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training parameters (reference: pointstowood/train.py:58-76, src/trainer.py:96-123)."""
+
+    num_epochs: int = 2
+    batch_size: int = 2
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-2
+    tune: bool = False  # low-LR cosine-warmup-restarts schedule
+    tune_lr: float = 1e-6
+    augmentation: bool = False
+    test: bool = False
+    stop_early: bool = False
+    checkpoint_saves: int = 1
+    label_smoothing: float = 0.1
+    focal_gamma: float = 2.0
+    poly_epsilon: float = 0.1
+    grad_clip_norm: float = 1.0
+    seed: int = 141190  # reference trainer.py:25
+    dtype: str = "float32"

@@ -1,4 +1,4 @@
-"""The wood/leaf segmentation backbone, eval mode (port of
+"""The wood/leaf segmentation backbone (port of
 pointstowood_tpu/model/network.py).
 
 A PointNet++-style encoder/decoder over padded (B, N) tile batches
@@ -15,6 +15,14 @@ the SA stage also returns the transpose top-2 for its FP stage
 ("transpose"), or the FP stage searches itself ("fused" or "gather", the
 JAX package's two search routes). It applies the JAX package's rule and
 shape gates, so both packages take the same route at every shape.
+
+Two modes, as the JAX ``Net(training, use_running_average)``: the
+sampling mode (``training``: exactly 50% of the valid points at random,
+drawn from a caller-given ``torch.Generator``; otherwise voxel
+representatives) and the BatchNorm mode (``use_running_average``:
+running statistics, or masked batch statistics that also update them)
+are two arguments; by default they pair up. The BatchNorm recalibration
+of the trainer runs eval sampling with batch statistics.
 """
 
 from __future__ import annotations
@@ -38,14 +46,17 @@ from pointstowood_tpu_torch.ops.interpolate import (
 )
 from pointstowood_tpu_torch.ops.knn import knn_masked, knn_topk_with_transpose
 from pointstowood_tpu_torch.ops.knn_kernels import transpose_supported
+from pointstowood_tpu_torch.ops.sampling import random_sample
 from pointstowood_tpu_torch.ops.voxel import (
     voxel_cell_ids,
     voxel_representatives,
 )
 
-# Largest FP source count the JAX package's eval forward hands to its
-# fused interpolation kernel (network.py: fused_bound).
-FUSED_MAX_SOURCES = 2048
+# Largest FP source count the JAX package hands to its fused
+# interpolation kernel (network.py: fused_bound): training differentiates
+# through it, where the fused route also wins at FP2's 4096 sources.
+FUSED_MAX_SOURCES_EVAL = 2048
+FUSED_MAX_SOURCES_TRAIN = 4096
 
 
 class SAStage(nn.Module):
@@ -68,13 +79,20 @@ class SAStage(nn.Module):
         self.residual_block = InvertedResidualBlock(out_features, dtype=dtype)
 
     def forward(self, x, pos3, refl, mask, sf, capacity: int,
-                stem_edge=None, want_transpose: bool = False):
+                training: bool = False, use_running_average: bool = True,
+                generator: torch.Generator | None = None, stem_edge=None,
+                want_transpose: bool = False):
         """``capacity``: static number of centre slots (N / 2 of this
-        stage's input by default)."""
+        stage's input by default). ``training`` samples the centres at
+        random from ``generator``, else takes voxel representatives."""
         refl = refl * self.reflectanceyesno(refl)
-        ids = voxel_cell_ids(pos3, self.resolution, mask=mask)
-        center_idx, center_valid = voxel_representatives(
-            ids, capacity, mask=mask, priority=self.voxel_priority)
+        if training:
+            center_idx, center_valid = random_sample(
+                mask, capacity, generator, fraction=0.5)
+        else:
+            ids = voxel_cell_ids(pos3, self.resolution, mask=mask)
+            center_idx, center_valid = voxel_representatives(
+                ids, capacity, mask=mask, priority=self.voxel_priority)
         pos4 = torch.cat([pos3 / sf[:, None, None], refl[..., None]], dim=-1)
         centers = gather_rows(pos3, center_idx)
         transpose = None
@@ -93,10 +111,11 @@ class SAStage(nn.Module):
             # divide, as in the JAX package
             radius = (torch.full_like(sf, self.resolution * 2) / sf)[
                 :, None, None]
+        ura = use_running_average
         x = self.conv(None if stem_edge is not None else x, pos4, center_idx,
                       nbr_idx, nbr_valid, center_valid, radius=radius,
-                      stem_edge=stem_edge, sf=sf)
-        x = self.residual_block(x)
+                      stem_edge=stem_edge, sf=sf, use_running_average=ura)
+        x = self.residual_block(x, center_valid, ura)
         refl = torch.gather(refl, 1, center_idx)
         return x, centers, refl, center_valid, transpose
 
@@ -108,16 +127,19 @@ class _Head(nn.Module):
         super().__init__()
         self.NN = RefMLP(widths, dtype)
 
-    def forward(self, x):
-        return self.NN(x)
+    def forward(self, x, mask=None, use_running_average: bool = True):
+        return self.NN(x, mask, use_running_average)
 
 
 class Net(nn.Module):
-    """Full backbone, eval mode.
+    """Full backbone.
 
     forward(pos3 (B, N, 3) centred xyz, refl (B, N), mask (B, N) bool,
-    sf (B,) per-sample scale factor) -> (B, N) fp32 logits
-    (num_classes == 1) or (B, N, num_classes).
+    sf (B,) per-sample scale factor, training=False,
+    use_running_average=None, generator=None) -> (B, N) fp32 logits
+    (num_classes == 1) or (B, N, num_classes). ``training`` selects random
+    50% sampling (from ``generator``) and the training fused-route bound;
+    ``use_running_average`` defaults to ``not training``.
     """
 
     def __init__(self, num_classes: int = 1, channels: int = 32, k: int = 32,
@@ -166,21 +188,22 @@ class Net(nn.Module):
             caps.append(cap)
         return caps
 
-    def stage_routes(self, n: int) -> list[str]:
+    def stage_routes(self, n: int, training: bool = False) -> list[str]:
         """Neighbour route of each level i (SA_{i+1} and the FP stage that
         interpolates back onto its sources), decided here only:
         "transpose" (the SA kNN also returns the FP top-2), "fused" or
         "gather" (the FP stage searches). Same rule as the JAX Net: the
-        transpose is wanted where the FP stage would gather anyway or has
-        more than 2048 sources, and taken where the JAX transpose kernel's
-        shape gate admits it."""
+        fused route takes up to 4096 sources in training and 2048
+        otherwise; the transpose is wanted where the FP stage would gather
+        anyway or has more than 2048 sources, and taken where the JAX
+        transpose kernel's shape gate admits it."""
         caps = self.capacities(n)
         src = [n] + caps[:-1]
+        bound = FUSED_MAX_SOURCES_TRAIN if training else FUSED_MAX_SOURCES_EVAL
         routes = []
         for i in range(3):
             fused = uses_fused_kernel(src[i], caps[i], self.channels * 16,
-                                      self.fp_k, self.knn_method,
-                                      FUSED_MAX_SOURCES)
+                                      self.fp_k, self.knn_method, bound)
             want_t = (self.fp_k == 2 and self.transpose_knn
                       and (not fused or caps[i] > 2048))
             if (want_t and self.knn_method == "fast"
@@ -190,18 +213,26 @@ class Net(nn.Module):
                 routes.append("fused" if fused else "gather")
         return routes
 
-    def forward(self, pos3, refl, mask, sf):
+    def forward(self, pos3, refl, mask, sf, training: bool = False,
+                use_running_average: bool | None = None,
+                generator: torch.Generator | None = None):
+        ura = (not training) if use_running_average is None \
+            else use_running_average
+        if training and generator is None:
+            raise ValueError("Net: training samples centres at random and "
+                             "needs a torch.Generator")
         n = pos3.shape[1]
         caps = self.capacities(n)
-        routes = self.stage_routes(n)
-        x0 = self.stem_mlp(pos3)
+        routes = self.stage_routes(n, training)
+        x0 = self.stem_mlp(pos3, mask, ura)
         xs, poss, masks = [x0], [pos3], [mask]
         transposes = [None, None, None]
         x, p, r, m = x0, pos3, refl, mask
         for i in range(3):
             stage = getattr(self, f"sa{i + 1}_module")
             x, p, r, m, transposes[i] = stage(
-                x, p, r, m, sf, caps[i],
+                x, p, r, m, sf, caps[i], training=training,
+                use_running_average=ura, generator=generator,
                 stem_edge=self.stem_mlp if i == 0 else None,
                 want_transpose=routes[i] == "transpose")
             xs.append(x)
@@ -209,14 +240,14 @@ class Net(nn.Module):
             masks.append(m)
 
         # global stage (model.py:129-140): MLP on [x, pos3], masked max
-        g = self.sa4_module(torch.cat([x, p.to(x.dtype)], dim=-1))
+        g = self.sa4_module(torch.cat([x, p.to(x.dtype)], dim=-1), m, ura)
         g = torch.where(m[..., None], g, torch.finfo(g.dtype).min).amax(1)
         # all-padding samples would pool to finfo.min and overflow the
         # downstream bf16 products: zero them
         g = torch.where(m.any(1)[:, None], g, 0.0)
 
         y = g[:, None, :].expand(g.shape[0], caps[2], g.shape[-1])
-        y = self.fp4_module(torch.cat([y, xs[3]], dim=-1))
+        y = self.fp4_module(torch.cat([y, xs[3]], dim=-1), masks[3], ura)
         for head, lvl in ((self.fp3_module, 2), (self.fp2_module, 1),
                           (self.fp1_module, 0)):
             interp = knn_interpolate_batched(
@@ -224,11 +255,12 @@ class Net(nn.Module):
                 source_mask=masks[lvl + 1], target_mask=masks[lvl],
                 method=self.knn_method, fused=routes[lvl] == "fused",
                 precomputed=transposes[lvl])
-            y = head(torch.cat([interp.to(self.dtype), xs[lvl]], dim=-1))
+            y = head(torch.cat([interp.to(self.dtype), xs[lvl]], dim=-1),
+                     masks[lvl], ura)
 
         # head (model.py:220-222, 241-243): Conv1d -> BN -> ReLU -> Conv1d
         y = dense(y, self.conv1.weight, self.conv1.bias, self.dtype)
-        y = torch.relu(self.norm(y))
+        y = torch.relu(self.norm(y, mask, ura))
         y = dense(y, self.conv2.weight, self.conv2.bias, self.dtype).float()
         if self.num_classes == 1:
             y = y[..., 0]

@@ -1,4 +1,4 @@
-"""Fixed-k PointNet set-abstraction convolution, eval mode (port of
+"""Fixed-k PointNet set-abstraction convolution (port of
 pointstowood_tpu/model/pointconv.py).
 
 The reference's edge-list PointNetConv (pointstowood/src/pointnet.py:
@@ -6,6 +6,11 @@ The reference's edge-list PointNetConv (pointstowood/src/pointnet.py:
 messages ``[x_j, (pos_j - pos_i) / (max_dist_i + 1e-8), reflectance_j]``,
 run the local MLP over the dense (B, S, k, C) block and take a masked max
 over k. Geometry stays fp32; the MLP runs in the compute dtype.
+
+Positions are network inputs and carry no gradient (the JAX package's
+dead-tail gather VJP); features get theirs through ``index_select``'s
+backward, an index_add. The masked max is ``amax``, whose gradient splits
+among ties as ``jnp.max``'s does (``max(dim)`` would give it to one).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ class PointConv(nn.Module):
     """One set-abstraction conv over a padded batch.
 
     forward(x, pos4, center_idx, nbr_idx, nbr_valid, center_valid,
-    radius=None, stem_edge=None, sf=None):
+    radius=None, stem_edge=None, sf=None, use_running_average=True):
       x: (B, N, C_in) source features, or None when ``stem_edge`` is given
         (SA1 recomputes the stem on the gathered positions: the stem is a
         per-point function of the unscaled position, and gather commutes
@@ -40,7 +45,9 @@ class PointConv(nn.Module):
       center_idx (B, S), nbr_idx (B, S, k), nbr_valid (B, S, k),
       center_valid (B, S);
       radius: optional (B, 1, 1) cap in the scaled frame (SA1);
-      sf: (B,) scale factors (needed with stem_edge).
+      sf: (B,) scale factors (needed with stem_edge);
+      use_running_average: BatchNorm mode of the local MLP, whose batch
+        statistics run over the valid neighbours after the radius cap.
     Returns (B, S, C_out), zero at centres without a valid neighbour.
     """
 
@@ -50,7 +57,7 @@ class PointConv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, pos4, center_idx, nbr_idx, nbr_valid, center_valid,
-                radius=None, stem_edge=None, sf=None):
+                radius=None, stem_edge=None, sf=None, use_running_average=True):
         dt = self.dtype
         pos_j = gather_rows(pos4, nbr_idx)                 # (B, S, k, 4)
         pos_i = gather_rows(pos4, center_idx)              # (B, S, 4)
@@ -71,7 +78,8 @@ class PointConv(nn.Module):
             parts = [geo, refl_j]
         else:
             parts = [gather_rows(x, nbr_idx).to(dt), geo, refl_j]
-        msg = self.local_nn(torch.cat(parts, dim=-1))
+        msg = self.local_nn(torch.cat(parts, dim=-1), mask=nbr_valid,
+                            use_running_average=use_running_average)
         neg = torch.finfo(msg.dtype).min
         out = torch.where(nbr_valid[..., None], msg, neg).amax(dim=-2)
         any_nbr = nbr_valid.any(-1) & center_valid

@@ -45,6 +45,8 @@ _SIGNATURES = {
     },
     "interp": {
         "ptw_interp_blend": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "ptw_interp_blend_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _P],
     },
     "fusion": {
         "ptw_pair_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -1,4 +1,4 @@
-"""Inverse-distance blend kernel (port of the forward of
+"""Inverse-distance blend kernels (port of the forward and the backward of
 pointstowood_tpu/ops/pallas_interp.py ``fp_interpolate_fast``).
 
 ``interp_blend`` (CUDA ``ptw_interp_blend``, csrc/interp.cu) turns each
@@ -11,9 +11,15 @@ as a thresholded dense ``W @ feats``, except that the TPU threshold also
 admits exact distance ties and, for ~1/256 of rows, the 3rd-nearest
 source (see csrc/interp.cu).
 
-The wrapper runs the plain version only for CPU tensors; on a CUDA tensor
-it launches the kernel or raises. ``interp_blend.launches`` counts kernel
-launches. The backward of the TPU kernel waits for the training slice.
+``interp_blend`` is differentiable in x through ``InterpBlend``, whose
+backward is ``interp_blend_bwd`` (CUDA ``ptw_interp_blend_bwd``):
+``d_x[b, idx_ti] += (w_ti / den_t) * d_y[b, t]``, accumulated in fp32 and
+cast to x's dtype, as the TPU kernel's custom VJP returns
+``d_feat.astype(d_y.dtype)``. Positions get no gradient.
+
+Each wrapper runs its plain version only for CPU tensors; on a CUDA tensor
+it launches its kernel or raises. ``interp_blend.launches`` and
+``interp_blend_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -64,36 +70,55 @@ def blend_plain(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
     return torch.where(target_mask[..., None], y, 0.0).to(x.dtype)
 
 
-def interp_blend(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
-                 target_mask: torch.Tensor) -> torch.Tensor:
-    """x (B, S, C) bf16/f32, idx (B, T, k) int, d2 (B, T, k) f32,
-    target_mask (B, T) bool -> (B, T, C) in x.dtype."""
-    b, n_src, c = x.shape
-    if idx.dim() != 3 or idx.shape[0] != b or d2.shape != idx.shape \
-            or tuple(target_mask.shape) != tuple(idx.shape[:2]):
-        raise ValueError(
-            f"interp_blend: bad shapes x {tuple(x.shape)} idx "
-            f"{tuple(idx.shape)} d2 {tuple(d2.shape)} mask "
-            f"{tuple(target_mask.shape)}")
-    if d2.dtype != torch.float32 or target_mask.dtype != torch.bool:
-        raise TypeError("interp_blend: d2 must be f32, target_mask bool")
+def blend_bwd_plain(d_y: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
+                    target_mask: torch.Tensor, n_src: int) -> torch.Tensor:
+    """Plain version of the backward kernel: each contribution
+    ``w_i * (d_y / den)`` is rounded as the kernel rounds it; the sums into
+    one source row are taken in index_add_'s order."""
+    b, _, c = d_y.shape
+    k = idx.shape[-1]
+    w = torch.reciprocal(torch.clamp(d2, min=1e-16))
+    den = torch.zeros(d2.shape[:2], dtype=torch.float32, device=d_y.device)
+    for i in range(k):
+        den = den + w[..., i]
+    den = torch.clamp(den, min=1e-16)
+    g = torch.where(target_mask[..., None], d_y.float() / den[..., None], 0.0)
+    acc = torch.zeros((b * n_src, c), dtype=torch.float32, device=d_y.device)
+    offs = torch.arange(b, device=d_y.device)[:, None] * n_src
+    for i in range(k):
+        wi = w[..., i, None]
+        contrib = torch.where(wi > 0, wi * g, 0.0)
+        acc.index_add_(0, (idx[..., i].long() + offs).reshape(-1),
+                       contrib.reshape(-1, c))
+    return acc.reshape(b, n_src, c).to(d_y.dtype)
+
+
+def _check_cuda(name: str, lead: torch.Tensor, *others: torch.Tensor) -> None:
+    if lead.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {lead.device}")
+    if any(t.device != lead.device for t in others):
+        raise ValueError(f"{name}: inputs on different devices")
+    if lead.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: features must be bf16 or f32, "
+                        f"got {lead.dtype}")
+
+
+def _vec_width(name: str, dtype: torch.dtype, c: int, k: int) -> None:
+    vec = 8 if dtype == torch.bfloat16 else 4
+    if c % vec or not 1 <= k <= _MAX_K:
+        raise ValueError(f"{name}: needs C % {vec} == 0 and "
+                         f"1 <= k <= {_MAX_K}, got C={c}, k={k}")
+
+
+def _blend_forward(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
+                   target_mask: torch.Tensor) -> torch.Tensor:
+    """Forward of ``InterpBlend``: the plain version for CPU tensors, else
+    one launch of the forward kernel (inputs checked by ``interp_blend``:
+    idx int32, all contiguous, on one CUDA device)."""
     if x.device.type == "cpu":
         return blend_plain(x, idx, d2, target_mask)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"interp_blend: no kernel for device {x.device}")
-    if any(t.device != x.device for t in (idx, d2, target_mask)):
-        raise ValueError("interp_blend: inputs on different devices")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"interp_blend: x must be bf16 or f32, got {x.dtype}")
-    vec = 8 if x.dtype == torch.bfloat16 else 4
+    b, n_src, c = x.shape
     k = idx.shape[-1]
-    if c % vec or not 1 <= k <= _MAX_K:
-        raise ValueError(f"interp_blend: needs C % {vec} == 0 and "
-                         f"1 <= k <= {_MAX_K}, got C={c}, k={k}")
-    x = x.contiguous()
-    idx = idx.to(torch.int32).contiguous()
-    d2 = d2.contiguous()
-    target_mask = target_mask.contiguous()
     n_tgt = idx.shape[1]
     y = torch.empty((b, n_tgt, c), dtype=x.dtype, device=x.device)
     if b and n_tgt:
@@ -107,4 +132,80 @@ def interp_blend(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
     return y
 
 
+def interp_blend_bwd(d_y: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
+                     target_mask: torch.Tensor, n_src: int) -> torch.Tensor:
+    """Gradient of ``interp_blend`` with respect to x: d_y (B, T, C)
+    bf16/f32, idx (B, T, k), d2 (B, T, k) f32, target_mask (B, T) bool ->
+    (B, n_src, C) in d_y.dtype."""
+    if d_y.device.type == "cpu":
+        return blend_bwd_plain(d_y, idx, d2, target_mask, n_src)
+    _check_cuda("interp_blend_bwd", d_y, idx, d2, target_mask)
+    b, n_tgt, c = d_y.shape
+    k = idx.shape[-1]
+    _vec_width("interp_blend_bwd", d_y.dtype, c, k)
+    d_y = d_y.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    d2 = d2.contiguous()
+    target_mask = target_mask.contiguous()
+    acc = torch.empty((b, n_src, c), dtype=torch.float32, device=d_y.device)
+    if not (b and n_tgt and n_src):
+        return acc.zero_().to(d_y.dtype)
+    d_x = acc if d_y.dtype == torch.float32 else torch.empty(
+        (b, n_src, c), dtype=d_y.dtype, device=d_y.device)
+    lib = build.library("interp")
+    stream = torch.cuda.current_stream(d_y.device).cuda_stream
+    build.check(lib.ptw_interp_blend_bwd(
+        d_y.data_ptr(), idx.data_ptr(), d2.data_ptr(), target_mask.data_ptr(),
+        acc.data_ptr(), d_x.data_ptr(), b, n_src, n_tgt, c, k,
+        int(d_y.dtype == torch.bfloat16), stream), "interp_blend_bwd")
+    interp_blend_bwd.launches += 1
+    return d_x
+
+
+class InterpBlend(torch.autograd.Function):
+    """``interp_blend`` with a gradient for x. The backward recomputes the
+    weights and their sum from the saved (idx, d2, target_mask), as the TPU
+    kernel recomputes W, and returns no gradient for the neighbour
+    arrays."""
+
+    @staticmethod
+    def forward(ctx, x, idx, d2, target_mask):
+        ctx.save_for_backward(idx, d2, target_mask)
+        ctx.n_src = x.shape[1]
+        return _blend_forward(x, idx, d2, target_mask)
+
+    @staticmethod
+    def backward(ctx, d_y):
+        idx, d2, target_mask = ctx.saved_tensors
+        d_x = None
+        if ctx.needs_input_grad[0]:
+            d_x = interp_blend_bwd(d_y, idx, d2, target_mask, ctx.n_src)
+        return d_x, None, None, None
+
+
+def interp_blend(x: torch.Tensor, idx: torch.Tensor, d2: torch.Tensor,
+                 target_mask: torch.Tensor) -> torch.Tensor:
+    """x (B, S, C) bf16/f32, idx (B, T, k) int, d2 (B, T, k) f32,
+    target_mask (B, T) bool -> (B, T, C) in x.dtype, differentiable in x
+    on every device (``InterpBlend``)."""
+    b = x.shape[0]
+    if idx.dim() != 3 or idx.shape[0] != b or d2.shape != idx.shape \
+            or tuple(target_mask.shape) != tuple(idx.shape[:2]):
+        raise ValueError(
+            f"interp_blend: bad shapes x {tuple(x.shape)} idx "
+            f"{tuple(idx.shape)} d2 {tuple(d2.shape)} mask "
+            f"{tuple(target_mask.shape)}")
+    if d2.dtype != torch.float32 or target_mask.dtype != torch.bool:
+        raise TypeError("interp_blend: d2 must be f32, target_mask bool")
+    if x.device.type != "cpu":
+        _check_cuda("interp_blend", x, idx, d2, target_mask)
+        _vec_width("interp_blend", x.dtype, x.shape[-1], idx.shape[-1])
+        x = x.contiguous()
+        idx = idx.to(torch.int32).contiguous()
+        d2 = d2.contiguous()
+        target_mask = target_mask.contiguous()
+    return InterpBlend.apply(x, idx, d2, target_mask)
+
+
 interp_blend.launches = 0
+interp_blend_bwd.launches = 0

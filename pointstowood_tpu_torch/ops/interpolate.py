@@ -4,8 +4,11 @@ pointstowood_tpu/ops/interpolate.py).
 Replacement for PyG ``knn_interpolate`` in the FP decoder stages
 (reference: pointstowood/src/model.py:149): each target averages the
 features of its k nearest valid sources, weighted by
-1 / max(d^2, 1e-16). Every route ends in the ``interp_blend`` kernel; they
-differ only in where the (idx, d2) neighbours come from.
+1 / max(d^2, 1e-16). Every route ends in ``interp_blend``, whose
+``InterpBlend`` Function gives x its gradient (the backward kernel
+``interp_blend_bwd`` on the card); the routes differ only in where the
+(idx, d2) neighbours come from, and ``model.network.Net.stage_routes``
+alone chooses among them.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from pointstowood_tpu_torch.ops.knn_kernels import knn_top2
 def uses_fused_kernel(t_n: int, s_n: int, channels: int, k: int,
                       method: str, fused_max_sources: int) -> bool:
     """Whether the JAX package's FP stage takes its fused Pallas kernel at
-    these static shapes (copied decision). ``model.network`` asks it once
-    per stage and routes both the SA and the FP stage from the answer."""
+    these static shapes (copied decision; ``fused_max_sources`` is 4096 in
+    training and 2048 otherwise). ``model.network`` asks it once per stage
+    and routes both the SA and the FP stage from the answer."""
     if k != 2 or method != "fast" or s_n > fused_max_sources:
         return False
     return fused_supported(t_n, s_n, channels)
@@ -54,7 +58,8 @@ def knn_interpolate_batched(
       * otherwise the gather path: ``knn_masked`` search, then d2
         recomputed in fp32 from the gathered positions (as the JAX gather
         path does).
-    Targets with no valid neighbour (padding) get zeros.
+    Targets with no valid neighbour (padding) get zeros. Differentiable in
+    x only: positions and neighbours are network inputs.
     """
     smask = (torch.ones(pos.shape[:2], dtype=torch.bool, device=pos.device)
              if source_mask is None else source_mask)

@@ -25,10 +25,10 @@ def _is_jax_package(name: str) -> bool:
 
 
 def _is_jax(name: str) -> bool:
-    """jax, jaxlib, flax, and pandas (which the port replaces with column
-    tables)."""
+    """jax, jaxlib, flax, optax, and pandas (which the port replaces with
+    column tables)."""
     return any(name == top or name.startswith(top + ".")
-               for top in ("jax", "jaxlib", "flax", "pandas"))
+               for top in ("jax", "jaxlib", "flax", "optax", "pandas"))
 
 
 def _port_modules():
@@ -47,6 +47,7 @@ def test_prefix_matcher():
     assert _is_jax_package("pointstowood_tpu.ops.knn")
     assert _is_jax("pandas") and _is_jax("pandas.core.frame")
     assert _is_jax("flax.linen") and not _is_jax("jaxtyping")
+    assert _is_jax("optax") and not _is_jax("optaxx")
     assert not _is_jax_package("pointstowood_tpu_torch")
     assert not _is_jax_package("pointstowood_tpu_torch.ops.knn")
 
@@ -73,6 +74,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not [m for m in loaded if _is_jax_package(m)]
     assert "pointstowood_tpu_torch.predict.predicter" in loaded
     assert "pointstowood_tpu_torch.cli.predict" in loaded
+    for m in ("cli.train", "train.trainer", "train.loss", "train.metrics",
+              "train.schedule", "train.augmentation", "ops.sampling"):
+        assert f"pointstowood_tpu_torch.{m}" in loaded
 
 
 def _imports(path):
@@ -117,7 +121,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 def test_kernel_wrappers_never_run_plain_on_cuda_tensors():
     """A wrapper runs its plain version only for CPU tensors: any other
     device takes the kernel path (here: meta tensors, which raise)."""
-    from pointstowood_tpu_torch.ops.interp_kernels import interp_blend
+    from pointstowood_tpu_torch.ops.interp_kernels import (
+        interp_blend,
+        interp_blend_bwd,
+    )
     from pointstowood_tpu_torch.ops.knn_kernels import knn_top2, knn_topk
 
     r = torch.zeros((1, 8, 3), device="meta")
@@ -130,6 +137,11 @@ def test_kernel_wrappers_never_run_plain_on_cuda_tensors():
         interp_blend(torch.zeros((1, 8, 8), device="meta"),
                      torch.zeros((1, 8, 2), dtype=torch.int32, device="meta"),
                      torch.zeros((1, 8, 2), device="meta"), m)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        interp_blend_bwd(torch.zeros((1, 8, 8), device="meta"),
+                         torch.zeros((1, 8, 2), dtype=torch.int32,
+                                     device="meta"),
+                         torch.zeros((1, 8, 2), device="meta"), m, 8)
 
 
 def test_pair_select_never_runs_plain_on_non_cpu_tensors():
@@ -193,6 +205,37 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--point-cloud", str(tmp_path / "p.ply"),
                   "--model", str(tmp_path / "m.pth")])
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """semantic_training, build_train_net and the train CLI's main default
+    to CUDA and raise without it, before any work is done."""
+    import numpy as np
+
+    from pointstowood_tpu_torch.cli import train as cli
+    from pointstowood_tpu_torch.config import (
+        ModelConfig,
+        TilingConfig,
+        TrainConfig,
+    )
+    from pointstowood_tpu_torch.data.tiling import Tile
+    from pointstowood_tpu_torch.train import trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).normal(size=(300, 5)).astype(np.float32)
+    tiles = [Tile(points=pts, grid_size=4.0)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.semantic_training(tiles, TrainConfig(),
+                                  ModelConfig(channels=8), TilingConfig(),
+                                  wdir=str(tmp_path), log_fn=lambda s: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.build_train_net(ModelConfig(channels=8), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--wdir", str(tmp_path)])
+    assert not (tmp_path / "model").exists()
+    assert cli.parse_args([]).device == "cuda"
+    net = trainer.build_train_net(ModelConfig(channels=8), 0, device="cpu")
+    assert next(net.parameters()).device.type == "cpu"
 
 
 def _run_smoke(cwd):
