@@ -44,32 +44,58 @@ exits non-zero and prints no final line):
                host path (exact scipy kNN + median/vote over the tiles'
                own points and the field there) on a seeded sample of
                50 000 query rows.
-9. kernel (interp_blend_bwd) -- the interpolation backward kernel at the
+9. kernel (group_min) -- the two-stage kNN's first kernel on the inputs
+               the main path gives it over a large-tile plot (4 x 4 trees
+               at three times phase 6's density, ~1.57 M points, whose
+               4 m cells fill the 24576 and 32768 buckets): SA1 of its
+               most padded B=8 x 32768 batch (two blocks of 16384) and
+               B=8 x 24576 batch (three blocks of 8192), and one
+               index-path launch of cap 32768 over windows masked past
+               each tile's length; held bit for bit (minima and slots)
+               against ``group_min_plain``, with +inf minima where every
+               member is masked; time, bound, plain version, the
+               ``cdist().square().amin`` yardstick, and the whole
+               two-stage kNN beside ``knn_topk`` at the same shape.
+10. crosscheck_large -- one full 32768-point tile of that plot (SA1 on
+               the two-stage kNN, one group_min launch) on the CPU (plain
+               versions) and on the card.
+11. predict_large -- ``cli.predict.main`` on that plot with
+               ``--grid_size 4.0 --max_pts 32768 --any-wood 0.5``: large
+               tiles and one grid scale at k = 32, so the model's SA1 runs
+               the two-stage kNN (one group_min launch per batch past
+               16384 points) and fusion the index path; group_min's
+               launch counter must grow in the model phase and again in
+               fusion. Tiles and batches per capacity bucket, per-phase
+               walls, points per second, peak memory.
+12. index_fusion_crosscheck -- ``fusion_indices`` on that tiling against
+               exact host fusion (trunk field as probabilities) on a seeded
+               sample of 50 000 rows.
+13. kernel (interp_blend_bwd) -- the interpolation backward kernel at the
                train shapes (B=8, C=512, bf16, random 50% centres): FP3
                4096 <- 2048 on the fused route's top-2, FP2 8192 <- 4096
                and FP1 16384 <- 8192 on the SA transpose neighbours; held
                against ``blend_bwd_plain`` within one bf16 step (the fp32
                sums run in atomic order); time, bound, plain version, and
                one ``index_add_`` of the pre-weighted rows as yardstick.
-10. train_crosscheck -- one fp32 train step (fast kNN, centres supplied)
+14. train_crosscheck -- one fp32 train step (fast kNN, centres supplied)
                on one full 16384-point tile on the CPU (plain versions) and
                on the card (kernels; FP3 fused, so the backward kernel runs
                at both of its routes): loss, logits, every gradient and the
                new BatchNorm statistics agree within
                ``CROSSCHECK_TOLERANCES``.
-11. train_step -- ten train steps of B=8 x 16384, C=32, bf16, fast kNN with
+15. train_step -- ten train steps of B=8 x 16384, C=32, bf16, fast kNN with
                seeded weights and labels: median step time, split into
                forward, backward and optimizer; points/s; peak memory;
                every train-path kernel's launch counter must grow (the
                backward's included). Then (phase ``train_profile``) one
                step's device time by kernel family under torch.profiler,
                with its idle share.
-12. train    -- ``cli.train.main`` with the default flags and 2 epochs on a
+16. train    -- ``cli.train.main`` with the default flags and 2 epochs on a
                labelled synthetic plot of another seed (truth: the trunk
                points); the loss is finite and falls from epoch 1 to 2,
                and ``cli.predict.main`` serves the trained ``.pth`` on the
                predict phase's plot, scored by balanced accuracy.
-13. the ``{"kernels": [...]}`` line (every CUDA kernel's rows), then the
+17. the ``{"kernels": [...]}`` line (every CUDA kernel's rows), then the
    card's nvidia-smi line, then the final ``{"ok": true, "device":
    {...}}`` line.
 
@@ -145,15 +171,16 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 # ---------------------------------------------------------------- data
 
 
-def synthetic_tiles(seed: int):
-    """A plot of trunk + crown trees, one tree per 4 m tile: eight full
-    16384-point tiles and four of 4500-6000 points (a second capacity
-    bucket). Points are float32 [x, y, z, reflectance]; wood (trunk) is
-    bright, leaves dark, as in the repo's verify recipe."""
+def synthetic_tiles(seed: int,
+                    sizes=(16384,) * 8 + (6000, 5500, 5000, 4500)):
+    """A plot of trunk + crown trees, one tree per 4 m tile, of the given
+    point counts: by default eight full 16384-point tiles and four of
+    4500-6000 points (a second capacity bucket). Points are float32
+    [x, y, z, reflectance]; wood (trunk) is bright, leaves dark, as in the
+    repo's verify recipe."""
     from pointstowood_tpu_torch.data.tiling import Tile
 
     rng = np.random.default_rng(seed)
-    sizes = [16384] * 8 + [6000, 5500, 5000, 4500]
     tiles = []
     for i, n in enumerate(sizes):
         ox, oy = 100.0 + 4.0 * (i % 4), 50.0 + 4.0 * (i // 4)
@@ -236,12 +263,14 @@ def stage_geometry(net, pos, mask):
 # ---------------------------------------------------------------- the plot
 
 
-def synthetic_plot(seed: int, n_side: int = 6):
+def synthetic_plot(seed: int, n_side: int = 6, density: float = 1.0):
     """A plot of n_side x n_side trees (trunk + crown) on a jittered 4 m
     grid over a ground layer, as a column table {x, y, z, intensity}; wood
     (trunk) is bright, leaves dark, ground in between. n_side = 6: 24 m x
-    24 m, about 1.2 M points. Also returns the trunk axes' (x, y) and the
-    truth: True for trunk points (wood)."""
+    24 m, about 1.2 M points at density 1 (9 000 trunk and 20 000 crown
+    points per tree); density scales every layer's point count. Also
+    returns the trunk axes' (x, y) and the truth: True for trunk points
+    (wood)."""
     rng = np.random.default_rng(seed)
     cols, refl, axes, wood = [], [], [], []
     side = 4.0 * n_side
@@ -251,7 +280,7 @@ def synthetic_plot(seed: int, n_side: int = 6):
         axes.append((cx, cy))
         h = rng.uniform(8.0, 14.0)
         r0 = rng.uniform(0.1, 0.25)
-        n_trunk, n_crown = 9000, 20000
+        n_trunk, n_crown = int(9000 * density), int(20000 * density)
         theta = rng.uniform(0, 2 * np.pi, n_trunk)
         r = r0 + rng.normal(0, 0.01, n_trunk)
         cols.append(np.stack([cx + r * np.cos(theta), cy + r * np.sin(theta),
@@ -263,7 +292,7 @@ def synthetic_plot(seed: int, n_side: int = 6):
                               h - 2 + rng.normal(0, 1.2, n_crown)], 1))
         refl.append(rng.normal(-1, 0.5, n_crown))
         wood.append(np.zeros(n_crown, bool))
-    n_ground = int(130000 * (n_side / 6) ** 2)
+    n_ground = int(130000 * density * (n_side / 6) ** 2)
     cols.append(np.stack([rng.uniform(0, side, n_ground),
                           rng.uniform(0, side, n_ground),
                           rng.normal(0, 0.05, n_ground)], 1))
@@ -355,7 +384,7 @@ def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
     n_side trees), ``pair_select`` on its entries, and the pair path
     against the host path. Appends the pair_select rows to ``rows`` and
     sets every row's ``launches`` from the predict run. Returns the plot's
-    PLY path and its truth (wood) column."""
+    PLY path, its truth (wood) column and the seeded ``.pth``."""
     import torch
 
     from pointstowood_tpu_torch.cli import predict as predict_cli
@@ -525,7 +554,306 @@ def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
          near_rows=plan.n_near)
     if agree < 0.98 or dpw >= 0.02:
         raise AssertionError("pair path and host path disagree on the plot")
-    return ply_path, wood
+    return ply_path, wood, model_path
+
+
+# ---------------------------------------------------------------- large tiles
+
+
+def large_tile_plot(seed):
+    """The large-tile plot of phases 9-12: 4 x 4 trees at three times the
+    phase-6 density (27 000 trunk and 60 000 crown points per tree over
+    390 000 ground points in all: 16 m x 16 m, about 1.57 M points),
+    whose 4 m cells fill the 24576 and 32768 buckets, written as PLY
+    under ``build/``; with the predict CLI's tiling and batcher at
+    ``--grid_size 4.0 --max_pts 32768`` and the trunk axes."""
+    from types import SimpleNamespace
+
+    from pointstowood_tpu_torch.config import PredictConfig, TilingConfig
+    from pointstowood_tpu_torch.data.tiling import preprocess_cloud
+    from pointstowood_tpu_torch.io import load_file, write_ply
+    from pointstowood_tpu_torch.io.loader import canonicalize_columns
+    from pointstowood_tpu_torch.predict.predicter import tile_batcher
+
+    work = os.path.join(ROOT, "build", "chip_smoke_plot")
+    os.makedirs(work, exist_ok=True)
+    plot, trunks, _ = synthetic_plot(seed, n_side=4, density=3.0)
+    ply_path = os.path.join(work, "plot_large.ply")
+    write_ply(ply_path, plot)
+    pc, _ = load_file(ply_path, additional_headers=True)
+    pc, _, _ = canonicalize_columns(pc, mode="predict")
+    tiling_cfg = TilingConfig(grid_size=(4.0,), max_pts=32768)
+    tiles = preprocess_cloud(pc, tiling_cfg)
+    batcher = tile_batcher(tiles, PredictConfig(batch_size=8), tiling_cfg)
+    return SimpleNamespace(ply_path=ply_path, trunks=trunks, pc=pc,
+                           tiling_cfg=tiling_cfg, tiles=tiles,
+                           batcher=batcher, order=batcher.tile_order())
+
+
+def group_min_rows(net, dev, rows, large):
+    """Phase ``kernel`` (group_min): the two-stage kNN's first kernel on
+    the inputs the large-tile plot's main path gives it: SA1 of its B=8 x
+    32768 batch (16384 centres; two blocks of 16384) and of its B=8 x
+    24576 batch (12288 centres; three blocks of 8192) with the most padded
+    sources (short tiles and the empty tiles that fill a bucket's last
+    batch), and one index-path launch at cap 32768 (the eight shortest
+    tiles of that cap, 8192 of each tile's rows as queries, against their
+    ``source_windows``: masked past each tile's length). Each is held bit
+    for bit against ``group_min_plain`` (minima and slots) and must hold
+    +inf minima (groups with every member masked); its time, bound, plain
+    time, the one-expression yardstick, and the whole two-stage kNN beside
+    ``knn_topk`` at the same shape."""
+    import torch
+
+    from pointstowood_tpu_torch.ops.knn import knn_masked
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        group_min,
+        group_min_plain,
+        knn_topk,
+        n_block,
+        supported,
+    )
+    from pointstowood_tpu_torch.predict import device_fusion
+
+    cases = []
+    for cap in (32768, 24576):
+        batch = min((b for c, b, _ in large.batcher if c == cap),
+                    key=lambda b: int(b.mask.sum()))
+        lv = stage_geometry(net, torch.from_numpy(batch.pos).to(dev),
+                            torch.from_numpy(batch.mask).to(dev))
+        cases.append((f"group_min SA1 8x{cap}", lv[1][0], *lv[0]))
+    flat, offsets, lens = device_fusion.flat_tiles(large.tiles, large.order,
+                                                   dev)
+    ids = sorted((t for t in large.order
+                  if device_fusion._next_cap(int(lens[t])) == 32768),
+                 key=lambda t: lens[t])[:8]
+    cols, cmask = device_fusion.source_windows(flat, offsets, lens,
+                                               np.array(ids), 32768)
+    queries = torch.from_numpy(np.stack(
+        [large.tiles[t].points[:device_fusion.QCHUNK, :3]
+         for t in ids])).to(dev)
+    cases.append(("group_min index path cap 32768", queries, cols, cmask))
+    for name, r, c, m in cases:
+        b, nq, nc = r.shape[0], r.shape[1], c.shape[1]
+        if b != 8:
+            raise AssertionError(f"{name}: batch of {b}, not 8")
+        g = supported(nc, 32)
+        nb = n_block(nc)
+        m_k, s_k = group_min(r, c, m, g)
+        torch.cuda.synchronize()
+        m_p, s_p = group_min_plain(r, c, m, g)
+        if not (torch.equal(m_k, m_p) and torch.equal(s_k, s_p)):
+            raise AssertionError(f"{name}: differs from the plain version")
+        n_inf = int(torch.isinf(m_k).sum())
+        if not n_inf:
+            raise AssertionError(f"{name}: no group with every member "
+                                 f"masked")
+        del m_k, s_k, m_p, s_p
+        ms = cuda_ms(lambda: group_min(r, c, m, g))
+        plain_ms = cuda_ms(lambda: group_min_plain(r, c, m, g), reps=1,
+                           warmup=0)
+        lib_ms = cuda_ms(lambda: torch.cdist(r, c).square().view(
+            b, nq, nc // nb, g, nb // g).amin(3), reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        two_stage_ms = cuda_ms(lambda: knn_masked(r, c, 32, source_mask=m,
+                                                  method="fast"), reps=5)
+        topk_ms = cuda_ms(lambda: knn_topk(r, c, m, 32), reps=5)
+        bms, by = bound(8.0 * b * nq * nc,
+                        12 * b * (nq + nc) + b * nc + 5 * b * nq * (nc // g))
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda",
+            "source": "pointstowood_tpu_torch/csrc/group_min.cu",
+            "replaces": "pointstowood_tpu/ops/pallas_knn.py:181",
+            "wrapper": "group_min", "shape": [b, nq, nc, g],
+            "n_block": nb, "masked_sources": int((~m).sum()),
+            "inf_minima": n_inf, "max_abs_err": 0.0,
+            "tolerance": "bit for bit (minima and slots)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms,
+            "library_call": "torch.cdist(q, s).square().view(B, Q, "
+                            "n_blocks, g, n_block / g).amin(3)",
+            "two_stage_knn_ms": two_stage_ms, "knn_topk_ms": topk_ms,
+        })
+        emit("kernel", **rows[-1])
+
+
+def crosscheck_large(net, dev, large, wrappers):
+    """Phase ``crosscheck_large``: one full 32768-point tile of the
+    large-tile plot through the port on the CPU (plain versions) and on
+    the card (kernels; SA1 takes the two-stage kNN): labels and
+    probabilities agree. Returns the card forward's launches of each
+    kernel."""
+    import torch
+
+    from pointstowood_tpu_torch.data.dataset import pad_tiles
+    from pointstowood_tpu_torch.predict.predicter import forward_probs
+
+    if net.stage_routes(32768)[0] != "gather":
+        raise AssertionError("SA1 at N=32768 does not take the gather route")
+    tile = next(t for t in large.tiles if len(t) == 32768)
+    one = pad_tiles([tile.points], 32768)
+    args = [torch.from_numpy(a) for a in
+            (one.pos, one.reflectance, one.mask, one.sf)]
+    t0 = time.perf_counter()
+    p_cpu = forward_probs(copy.deepcopy(net).to("cpu"), *args)[0]
+    cpu_s = time.perf_counter() - t0
+    for fn in wrappers.values():
+        fn.launches = 0
+    p_gpu = forward_probs(net, *(a.to(dev) for a in args))[0].float().cpu()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    p_cpu, p_gpu = p_cpu.float().numpy(), p_gpu.numpy()
+    m = one.mask[0]
+    agree = float(((p_cpu[m] >= 0.5) == (p_gpu[m] >= 0.5)).mean())
+    dp = np.abs(p_cpu[m] - p_gpu[m])
+    p99 = float(np.quantile(dp, 0.99))
+    emit("crosscheck_large", points=int(m.sum()), label_agreement=agree,
+         p99_abs_dprob=p99, max_abs_dprob=float(dp.max()),
+         mean_prob=float(p_gpu[m].mean()), cpu_seconds=cpu_s,
+         launches=launches)
+    if agree < 0.995 or p99 > 0.02:
+        raise AssertionError("CPU and card disagree on the 32768-point tile")
+    if launches["group_min"] != 1:
+        raise AssertionError(f"group_min: {launches['group_min']} launches "
+                             f"in a 32768-point forward, not 1 (SA1)")
+    return launches
+
+
+def predict_large_phases(dev, smi, rows, wrappers, large, model_path):
+    """Phases ``predict_large`` and ``index_fusion_crosscheck``: the
+    predict CLI on the large-tile plot at one 4 m grid, max_pts 32768,
+    any-wood 0.5 (SA1 of every 24576 and 32768 batch takes the two-stage
+    kNN, one group_min launch each; one grid scale at k = 32: the index
+    fusion path), with group_min's launches counted apart in the model and
+    fusion phases; then ``fusion_indices`` against exact host fusion on a
+    seeded sample of 50 000 rows, with the trunk field as
+    probabilities."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pointstowood_tpu_torch.cli import predict as predict_cli
+    from pointstowood_tpu_torch.data.tiling import xyz_of
+    from pointstowood_tpu_torch.io import read_ply
+    from pointstowood_tpu_torch.predict import device_fusion
+    from pointstowood_tpu_torch.predict.fusion import fuse_labels, knn_indices
+
+    src = read_ply(large.ply_path)
+    n_plot = len(src["x"])
+    fusion_launches: dict = {}
+    real_indices = device_fusion.fusion_indices
+
+    def counted_indices(*args, **kwargs):
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        out = real_indices(*args, **kwargs)
+        fusion_launches.update({k: fn.launches - before[k]
+                                for k, fn in wrappers.items()})
+        return out
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    device_fusion.fusion_indices = counted_indices
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            (rec,) = predict_cli.main([
+                "--point-cloud", large.ply_path, "--model", model_path,
+                "--grid_size", "4.0", "--max_pts", "32768",
+                "--any-wood", "0.5"], device=dev)
+    finally:
+        device_fusion.fusion_indices = real_indices
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(log.getvalue(), end="", flush=True)
+    fusion_lines = [s for s in log.getvalue().splitlines()
+                    if s.startswith("fusion:")]
+    if len(fusion_lines) != 1 or "index path" not in fusion_lines[0]:
+        raise AssertionError(f"predict_large: fusion took another path: "
+                             f"{fusion_lines}")
+    out = read_ply(rec["output"])
+    if len(out["x"]) != n_plot:
+        raise AssertionError(f"predict_large: {len(out['x'])} rows != "
+                             f"{n_plot}")
+    for c in ("x", "y", "z"):
+        if not np.array_equal(out[c], src[c]):
+            raise AssertionError(f"predict_large: column {c} changed")
+    labels, pwood = out["label"], out["pwood"]
+    if not set(np.unique(labels).tolist()) <= {0.0, 1.0}:
+        raise AssertionError("predict_large: labels outside {0, 1}")
+    if not (np.isfinite(pwood).all() and pwood.min() >= 0
+            and pwood.max() <= 1):
+        raise AssertionError("predict_large: pwood outside [0, 1]")
+    model_launches = {k: v - fusion_launches.get(k, 0)
+                      for k, v in launches.items()}
+
+    # the CLI's tiling, for the bucket counts: SA1 takes the two-stage
+    # kNN once per batch of more than 16384 points
+    tiles_per_bucket: dict = {}
+    batches_per_bucket: dict = {}
+    for cap, ids in large.batcher.batch_plan():
+        tiles_per_bucket[cap] = tiles_per_bucket.get(cap, 0) + len(ids)
+        batches_per_bucket[cap] = batches_per_bucket.get(cap, 0) + 1
+    large_batches = sum(n for cap, n in batches_per_bucket.items()
+                        if cap > 16384)
+    n_cls = int(sum(len(t) for t in large.tiles))
+    emit("predict_large", nvidia_smi=smi, plot_points=n_plot,
+         tiles=rec["tiles"], classified_points=n_cls,
+         tiles_per_bucket={str(k): v
+                           for k, v in sorted(tiles_per_bucket.items())},
+         batches_per_bucket={str(k): v
+                             for k, v in sorted(batches_per_bucket.items())},
+         index_windows_32768=sum(
+             device_fusion._next_cap(len(t)) == 32768 for t in large.tiles),
+         seconds=rec["seconds"], wall_s=wall_s,
+         points_per_s=n_plot / wall_s, launches=launches,
+         launches_model=model_launches, launches_fusion=fusion_launches,
+         max_memory_gib=peak_gib, fusion_line=fusion_lines[0],
+         wood_fraction=float(labels.mean()), mean_pwood=float(pwood.mean()))
+    if not (batches_per_bucket.get(32768) and batches_per_bucket.get(24576)):
+        raise AssertionError(f"predict_large: buckets {batches_per_bucket} "
+                             f"miss 24576 or 32768")
+    if model_launches["group_min"] != large_batches:
+        raise AssertionError(f"group_min: {model_launches['group_min']} "
+                             f"launches in the model, not one per batch "
+                             f"past 16384 points ({large_batches})")
+    if not fusion_launches["group_min"]:
+        raise AssertionError("group_min: no launch in the index fusion path")
+    for row in rows:
+        if row["wrapper"] == "group_min":
+            row["launches"] = launches["group_min"]
+            row["launches_model_per_plot"] = model_launches["group_min"]
+            row["launches_fusion_per_plot"] = fusion_launches["group_min"]
+
+    classified_xyz = np.concatenate([large.tiles[t].points[:, :3]
+                                     for t in large.order])
+    field = trunk_field(classified_xyz, large.trunks)
+    classified = np.concatenate(
+        [classified_xyz, (field >= 0.5)[:, None], field[:, None]], axis=1)
+    query_xyz = xyz_of(large.pc)
+    t0 = time.perf_counter()
+    idx, n_host = device_fusion.fusion_indices(
+        large.tiles, large.order, classified_xyz, query_xyz, 32,
+        large.tiling_cfg.min_pts, device=dev)
+    index_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    pick = np.sort(rng.choice(len(query_xyz), min(50000, len(query_xyz)),
+                              replace=False))
+    got = fuse_labels(classified, query_xyz[pick], 0.5, 0.5,
+                      indices=idx[pick], device=dev)
+    host = fuse_labels(classified, query_xyz[pick], 0.5, 0.5,
+                       indices=knn_indices(classified_xyz, query_xyz[pick],
+                                           32), device=dev)
+    agree = float((got[:, 0] == host[:, 0]).mean())
+    dpw = float(np.abs(got[:, 1] - host[:, 1]).mean())
+    emit("index_fusion_crosscheck", sample=len(pick), label_agreement=agree,
+         mean_abs_dpwood=dpw, wood_fraction_host=float(host[:, 0].mean()),
+         index_path_s=index_s, host_rows=n_host)
+    if agree < 0.98 or dpw >= 0.02:
+        raise AssertionError("index path and host path disagree on the plot")
 
 
 # ---------------------------------------------------------------- training
@@ -798,11 +1126,12 @@ def train_crosscheck(dev, seed):
     return rec
 
 
-def train_step_phase(dev, smi, wrappers, seed):
+def train_step_phase(dev, smi, wrappers, seed, required):
     """Phase 11: B=8 x 16384, C=32, bf16, fast kNN train steps with seeded
     weights and labels: median step time, split into forward, backward
-    and optimizer; points/s; peak memory; every train-path kernel's
-    launch counter; then one step under torch.profiler."""
+    and optimizer; points/s; peak memory; the launch counter of every
+    kernel in ``wrappers``, where each in ``required`` (the train path's)
+    must grow; then one step under torch.profiler."""
     import torch
 
     from pointstowood_tpu_torch.config import ModelConfig, TrainConfig
@@ -877,8 +1206,8 @@ def train_step_phase(dev, smi, wrappers, seed):
                launches_per_step={k: v / 10 for k, v in launches.items()},
                losses=losses, parameters=sum(p.numel()
                                              for p in net.parameters()))
-    for name, n in launches.items():
-        if n == 0:
+    for name in required:
+        if launches[name] == 0:
             raise AssertionError(f"{name}: no launch on the train path")
     if skipped or not np.isfinite(losses).all():
         raise AssertionError("train_step: non-finite step")
@@ -928,7 +1257,7 @@ def kernel_family(name: str) -> str:
     for fam, keys in (
             ("port kernels (csrc/*.cu)", ("knn_select", "knn_top2",
                                           "interp_blend", "cast_bf16",
-                                          "pair_select")),
+                                          "pair_select", "group_min")),
             ("GEMM", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
             ("optimizer (foreach)", ("multi_tensor", "foreach")),
             ("copies and casts", ("copy_kernel", "direct_copy", "memcpy",
@@ -1020,11 +1349,14 @@ def main() -> int:
     )
     from pointstowood_tpu_torch.data.dataset import pad_tiles
     from pointstowood_tpu_torch.ops import build
+    from pointstowood_tpu_torch.ops.fusion_kernels import pair_select
     from pointstowood_tpu_torch.ops.interp_kernels import (
         blend_plain,
         interp_blend,
+        interp_blend_bwd,
     )
     from pointstowood_tpu_torch.ops.knn_kernels import (
+        group_min,
         knn_top2,
         knn_topk,
         select_plain,
@@ -1165,10 +1497,15 @@ def main() -> int:
         })
         emit("kernel", **rows[-1])
 
-    # ---- 4. the main path: run_inference over the plot
+    # ---- 4. the main path: run_inference over the plot. Every kernel's
+    # launches are counted (each row's launches_forward); the forward
+    # kernels must launch
     wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
                 "interp_blend": interp_blend}
-    for fn in wrappers.values():
+    every_wrapper = {**wrappers, "pair_select": pair_select,
+                     "group_min": group_min,
+                     "interp_blend_bwd": interp_blend_bwd}
+    for fn in every_wrapper.values():
         fn.launches = 0
     predict_cfg = PredictConfig(batch_size=8)
     tiling_cfg = TilingConfig(grid_size=(4.0,), min_pts=128, max_pts=16384)
@@ -1176,7 +1513,8 @@ def main() -> int:
     t0 = time.perf_counter()
     out = run_inference(tiles, net, predict_cfg, tiling_cfg, device=dev)
     run_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    fwd_launches = {name: fn.launches for name, fn in every_wrapper.items()}
+    launches = {name: fwd_launches[name] for name in wrappers}
     n_pts = sum(len(t) for t in tiles)
     if out.shape != (n_pts, 5):
         raise AssertionError(f"run_inference rows {out.shape} != {n_pts}")
@@ -1193,8 +1531,6 @@ def main() -> int:
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name}: no launch on the main path")
-    for row in rows:
-        row["launches_forward"] = launches[row["wrapper"]]
 
     refl = torch.from_numpy(batch.reflectance).to(dev)
     sf = torch.from_numpy(batch.sf).to(dev)
@@ -1208,7 +1544,7 @@ def main() -> int:
             fwd.append((time.perf_counter() - t1) * 1e3)
     fwd_ms = statistics.median(fwd)
     emit("forward", plot_points=n_pts, tiles=len(tiles),
-         run_inference_s=run_s, launches=launches,
+         run_inference_s=run_s, launches=fwd_launches,
          wood_fraction=float((out[:, 3] > 0).mean()),
          forward_ms_b8x16384=fwd_ms, forward_ms_all=fwd,
          points_per_s=float(batch.mask.sum()) / (fwd_ms / 1e3),
@@ -1264,25 +1600,38 @@ def main() -> int:
     if agree < 0.995 or p99 > 0.02:
         raise AssertionError("CPU and card disagree on the full tile")
 
-    eval_ply, eval_wood = serving_phases(net, dev, smi, rows, wrappers)
+    eval_ply, eval_wood, model_path = serving_phases(
+        net, dev, smi, rows, wrappers)
 
-    # ---- 9-12. training
-    from pointstowood_tpu_torch.ops.interp_kernels import interp_blend_bwd
+    # ---- 9-12. large tiles, on a denser plot whose 4 m cells fill the
+    # 24576 and 32768 buckets: group_min on its main path's inputs, one
+    # 32768-point tile CPU vs card, the CLI at max_pts 32768 on one grid
+    # scale (index fusion path)
+    large = large_tile_plot(SEED)
+    group_min_rows(net, dev, rows, large)
+    fwd32_launches = crosscheck_large(net, dev, large, every_wrapper)
+    predict_large_phases(dev, smi, rows, {**wrappers, "group_min": group_min},
+                         large, model_path)
 
+    # ---- 13-16. training
     n_fwd = len(rows)
     blend_bwd_rows(dev, rows, SEED)
+    for row in rows:
+        row["launches_forward"] = fwd_launches[row["wrapper"]]
+        row["launches_forward_32768"] = fwd32_launches[row["wrapper"]]
     train_crosscheck(dev, SEED)
     train_wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
                       "interp_blend": interp_blend,
                       "interp_blend_bwd": interp_blend_bwd}
-    _, step_launches = train_step_phase(dev, smi, train_wrappers, SEED)
+    _, step_launches = train_step_phase(dev, smi, every_wrapper, SEED,
+                                        required=train_wrappers)
     for row in rows:
-        row["launches_train_step"] = step_launches.get(row["wrapper"], 0)
+        row["launches_train_step"] = step_launches[row["wrapper"]]
     for row in rows[n_fwd:]:
         row["launches"] = step_launches["interp_blend_bwd"]
     train_cli_phase(dev, smi, train_wrappers, eval_ply, eval_wood)
 
-    # ---- 13. results
+    # ---- 17. results
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": rows}, f, indent=1)

@@ -9,7 +9,7 @@ classifies every tile, fuses the predictions onto every original point
 and writes ``<name>_ours.ply`` next to the input with the input's extra
 columns plus ``n_z``, ``label`` and ``pwood``. The flags are the JAX
 CLI's (reference: pointstowood/predict.py:61-74); ``--fusion tpu`` keeps
-its spelling and means the device pair path. Checkpoints are
+its spelling and means the device fusion paths. Checkpoints are
 reference-layout ``.pth`` files (``utils/checkpoint.py``).
 
 Runs on CUDA. ``main(argv, device="cpu")`` runs the plain PyTorch
@@ -70,9 +70,10 @@ def parse_args(argv=None):
                              'default runs the CUDA selection kernels)')
     parser.add_argument('--fusion', default='auto',
                         choices=['auto', 'host', 'tpu'],
-                        help='fusion neighbor search: the device pair path '
-                             '("tpu", the JAX flag\'s spelling) or the exact '
-                             'host search; auto takes the pair path when the '
+                        help='fusion neighbor search: on the device '
+                             '("tpu", the JAX flag\'s spelling: the pair path, '
+                             'else the tile-local index path) or the exact '
+                             'host search; auto takes a device path when the '
                              'tiling allows it')
     parser.add_argument('--profile', type=str, default=None,
                         help='write a torch.profiler trace of the model phase '

@@ -78,9 +78,11 @@ class PredictConfig:
     # (fp16); the port follows the JAX package with bf16.
     dtype: str = "bfloat16"
     # Fusion path: 'auto' takes the device pair path
-    # (predict/device_fusion.py) where the tiling allows it, else the host
-    # path (predict/fusion.py); 'tpu' (the JAX flag's spelling) demands the
-    # pair path; 'host' takes the host path.
+    # (predict/device_fusion.py) where the tiling allows it, else the
+    # device index path where it serves (one grid scale at k = 32), else
+    # the host path (predict/fusion.py); 'tpu' (the JAX flag's spelling)
+    # takes the pair path, else the index path; 'host' takes the host
+    # path. See predict/predicter.py semantic_segmentation.
     fusion: str = "auto"
 
 

@@ -31,7 +31,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("knn", "interp", "fusion")
+SOURCES = ("knn", "interp", "fusion", "group_min")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -50,6 +50,9 @@ _SIGNATURES = {
     },
     "fusion": {
         "ptw_pair_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "group_min": {
+        "ptw_group_min": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

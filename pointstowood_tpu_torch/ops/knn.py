@@ -9,10 +9,15 @@ Two methods:
 
 * ``"exact"``: plain fp32 top-k that ranks by the JAX exact path's
   expansion ``||q||^2 - 2 q.s + ||s||^2`` (clamped at 0) — the parity path;
-* ``"fast"``: the CUDA selection kernels of ``ops/knn_kernels.py`` (exact
-  fp32 top-k in the difference form). Where the JAX fast path falls back
-  to XLA ``approx_min_k`` (small or unaligned N), the port uses the same
-  kernels: they have no shape limit.
+* ``"fast"``: the CUDA kernels of ``ops/knn_kernels.py``, routed as the
+  JAX ``_fast_knn`` routes (``knn_kernels.fast_route``): where JAX takes
+  its folded top-2 or in-kernel top-k, the exact fp32 selections
+  ``knn_top2``/``knn_topk``; where it takes the two-stage path (sources
+  past one 16384 block, or without a second fold), ``group_min`` over
+  block-local groups of g strided sources, ``torch.topk`` over the group
+  minima and ``member_index``; where it falls back to XLA's
+  ``_approx_knn`` (small or unaligned N), ``knn_top2``/``knn_topk`` again:
+  they have no shape limit.
 
 Return contract (both methods, as in the JAX package): idx is 0 where
 invalid, d2 is +inf where invalid, and valid is the query mask AND a finite
@@ -25,7 +30,14 @@ import math
 
 import torch
 
-from pointstowood_tpu_torch.ops.knn_kernels import knn_top2, knn_topk
+from pointstowood_tpu_torch.ops.knn_kernels import (
+    fast_route,
+    group_min,
+    knn_top2,
+    knn_topk,
+    member_index,
+    supported,
+)
 
 _EXACT_CHUNK_ELEMS = 1 << 23
 
@@ -51,6 +63,23 @@ def _exact_knn(q, s, smask, k):
     return out_i, out_d
 
 
+def _two_stage_knn(q, s, smask, k):
+    """The JAX two-stage fast kNN (knn.py:169-188): ``group_min`` folds
+    the sources into block-local groups of g, a top-k over the (B, Q, N/g)
+    group minima picks k groups, and ``member_index`` maps each group's
+    winning slot back to its source. JAX selects with XLA's
+    ``approx_min_k``, which sits outside any Pallas kernel and lowers to an
+    exact top-k on the CPU; the port takes ``torch.topk``. The minima are
+    already the exact difference-form d2, so the selected values need no
+    recompute (JAX re-gathers because its values are slot-packed
+    ``||s||^2 - 2 q.s``)."""
+    n = s.shape[1]
+    g = supported(n, k)
+    gmin, slot = group_min(q, s, smask, g)
+    d2, gidx = torch.topk(gmin, k, dim=-1, largest=False, sorted=True)
+    return member_index(gidx, torch.gather(slot, -1, gidx), n, g), d2
+
+
 def knn_masked(query_pos: torch.Tensor, source_pos: torch.Tensor, k: int,
                query_mask: torch.Tensor | None = None,
                source_mask: torch.Tensor | None = None,
@@ -60,7 +89,8 @@ def knn_masked(query_pos: torch.Tensor, source_pos: torch.Tensor, k: int,
     Args:
       query_pos: (B, Q, 3); source_pos: (B, N, 3) (cast to fp32).
       k: neighbours; query_mask (B, Q) / source_mask (B, N): bool.
-      method: "exact" (plain parity path) or "fast" (CUDA kernels).
+      method: "exact" (plain parity path) or "fast" (CUDA kernels, routed
+        by ``fast_route``).
 
     Returns idx (B, Q, k) int64 (0 where invalid), d2 (B, Q, k) fp32
     (+inf where invalid), valid (B, Q, k) bool.
@@ -74,10 +104,13 @@ def knn_masked(query_pos: torch.Tensor, source_pos: torch.Tensor, k: int,
     if method == "exact":
         idx, d2 = _exact_knn(q, s, smask, k_eff)
     elif method == "fast":
-        if k_eff == 2:
-            d2, idx = knn_top2(q.contiguous(), s.contiguous(), smask)
+        q, s = q.contiguous(), s.contiguous()
+        if fast_route(n, k_eff) == "two_stage":
+            idx, d2 = _two_stage_knn(q, s, smask, k_eff)
+        elif k_eff == 2:
+            d2, idx = knn_top2(q, s, smask)
         else:
-            d2, idx = knn_topk(q.contiguous(), s.contiguous(), smask, k_eff)
+            d2, idx = knn_topk(q, s, smask, k_eff)
         idx = idx.long()
     else:
         raise ValueError(f"unknown kNN method {method!r}")

@@ -1,22 +1,25 @@
 """k-nearest selection kernels (port of pointstowood_tpu/ops/pallas_knn.py).
 
-Two wrappers, each beside its plain PyTorch version:
+Three wrappers, each beside its plain PyTorch version:
 
 * ``knn_topk`` (CUDA ``ptw_knn_topk``, csrc/knn.cu) replaces the Pallas
   ``group_min_topk`` and the forward half of ``group_min_topk_t``;
 * ``knn_top2`` (CUDA ``ptw_knn_top2``) replaces the Pallas ``top2`` and
-  the transpose half of ``group_min_topk_t``.
+  the transpose half of ``group_min_topk_t``;
+* ``group_min`` (CUDA ``ptw_group_min``, csrc/group_min.cu) replaces the
+  Pallas ``group_min``: the first stage of the two-stage fast kNN.
 
-Both return the exact top-k by squared distance, ascending, ties to the
-lower column index, with the TRUE d2 (+inf for masked columns and unfilled
-slots; idx 0 there). A wrapper runs the plain version only when its inputs
-lie on the CPU; on a CUDA tensor it launches the kernel or raises. Each
-wrapper counts its kernel launches in its ``launches`` attribute.
+The selections return the exact top-k by squared distance, ascending, ties
+to the lower column index, with the TRUE d2 (+inf for masked columns and
+unfilled slots; idx 0 there). A wrapper runs the plain version only when
+its inputs lie on the CPU; on a CUDA tensor it launches the kernel or
+raises. Each wrapper counts its kernel launches in its ``launches``
+attribute.
 
 The shape gates of the JAX package (``supported``, ``topk_supported``,
-``transpose_supported``, ``top2_supported``) are copied as plain Python:
-the kernels here have no shape limit, but ``model.network`` routes each
-stage the way the JAX package does, so both take the same path.
+``transpose_supported``, ``top2_supported``) are copied as plain Python,
+and ``fast_route`` applies them as the JAX fast kNN does, so both packages
+take the same route at every shape.
 """
 
 from __future__ import annotations
@@ -88,6 +91,43 @@ def top2_supported(n: int) -> bool:
     )
 
 
+def fast_route(n: int, k: int) -> str:
+    """The JAX fast kNN's route for n sources and k neighbours
+    (pointstowood_tpu/ops/knn.py ``_fast_knn``): "top2" (the folded top-2
+    kernel), "topk" (the in-kernel top-k), "two_stage" (``group_min``, a
+    top-k over the group minima, ``member_index``) or "approx" (XLA's
+    ``_approx_knn``, where no kernel's shape gate admits n)."""
+    if k == 2 and top2_supported(n):
+        return "top2"
+    if topk_supported(n, k):
+        return "topk"
+    if supported(n, k):
+        return "two_stage"
+    return "approx"
+
+
+def n_block(n: int) -> int:
+    """Sources per block of the block-local grouping (pallas_knn.py
+    ``_n_block``): the largest of 16384/8192/4096/2048 dividing n, else
+    n."""
+    for b in (N_BLOCK_MAX, 8192, 4096, 2048):
+        if n % b == 0 and b <= n:
+            return b
+    return n
+
+
+def member_index(gidx: torch.Tensor, slot: torch.Tensor, n: int,
+                 g: int) -> torch.Tensor:
+    """Source column of (global group index, member slot) under the
+    block-local grouping (pallas_knn.py ``member_index``): block
+    gidx // (n_block/g), column block * n_block + slot * n_block/g +
+    gidx % (n_block/g). Returns int64."""
+    nb = n_block(n)
+    npg = nb // g
+    gidx, slot = gidx.long(), slot.long()
+    return (gidx // npg) * nb + slot * npg + gidx % npg
+
+
 # --- plain versions ---------------------------------------------------------
 
 _CHUNK_ELEMS = 1 << 23  # distance-matrix elements per plain-version chunk
@@ -124,6 +164,38 @@ def select_plain(rows: torch.Tensor, cols: torch.Tensor,
         out_i[:, lo:lo + step, :kk] = torch.where(
             torch.isfinite(vals), order, 0).to(torch.int32)
     return out_d, out_i
+
+
+def group_min_plain(rows: torch.Tensor, cols: torch.Tensor,
+                    col_mask: torch.Tensor, g: int):
+    """Plain version of ``group_min``: per row and group, the smallest
+    masked squared distance over the group's g members and the slot that
+    holds it (a strict ``<`` scan over the slots: ties and an all-masked
+    group keep the lower slot, as the Pallas kernel's ``da < m``).
+    Returns (minima (B, R, C/g) f32, +inf for all-masked groups;
+    slots (B, R, C/g) uint8)."""
+    b, n_rows, _ = rows.shape
+    n_cols = cols.shape[1]
+    nb = n_block(n_cols)
+    npg = nb // g
+    out_m = torch.empty((b, n_rows, n_cols // g), device=rows.device)
+    out_s = torch.empty((b, n_rows, n_cols // g), dtype=torch.uint8,
+                        device=rows.device)
+    step = max(1, _CHUNK_ELEMS // max(1, b * n_cols))
+    for lo in range(0, n_rows, step):
+        d = pair_d2(rows[:, lo:lo + step], cols)
+        d = torch.where(col_mask[:, None, :], d, math.inf)
+        # column bk * nb + a * npg + jj is member a of group bk * npg + jj
+        d = d.view(b, d.shape[1], n_cols // nb, g, npg)
+        m = d[:, :, :, 0]
+        slot = torch.zeros(m.shape, dtype=torch.uint8, device=rows.device)
+        for a in range(1, g):
+            upd = d[:, :, :, a] < m
+            m = torch.where(upd, d[:, :, :, a], m)
+            slot.masked_fill_(upd, a)
+        out_m[:, lo:lo + step] = m.reshape(b, -1, n_cols // g)
+        out_s[:, lo:lo + step] = slot.reshape(b, -1, n_cols // g)
+    return out_m, out_s
 
 
 # --- kernel wrappers --------------------------------------------------------
@@ -202,3 +274,46 @@ def knn_top2(rows: torch.Tensor, cols: torch.Tensor,
 
 
 knn_top2.launches = 0
+
+_GROUP_SIZES = (2, 4, 8)
+
+
+def group_min(rows: torch.Tensor, cols: torch.Tensor,
+              col_mask: torch.Tensor, g: int):
+    """Grouped minima of the two-stage fast kNN: rows (B, R, 3) f32, cols
+    (B, C, 3) f32, col_mask (B, C) bool, g in {2, 4, 8} with C a multiple
+    of g * 128 -> (minima (B, R, C/g) f32, slots (B, R, C/g) uint8).
+    Group j of block bk = j // (n_block/g) holds the columns
+    bk * n_block + a * n_block/g + j % (n_block/g) for slots a < g
+    (``n_block(C)``, the JAX block-local grouping); ``member_index`` maps
+    (j, slot) back to the column. The minimum is the true squared distance
+    in the difference form, +inf where every member is masked. CUDA: the
+    ``ptw_group_min`` kernel."""
+    _check_inputs(rows, cols, col_mask, "group_min")
+    n_cols = cols.shape[1]
+    if g not in _GROUP_SIZES or n_cols % (g * 128):
+        raise ValueError(f"group_min: g={g} does not tile {n_cols} columns "
+                         f"(g in {_GROUP_SIZES}, columns a multiple of "
+                         "g * 128)")
+    if rows.device.type == "cpu":
+        return group_min_plain(rows, cols, col_mask, g)
+    if rows.device.type != "cuda":
+        raise RuntimeError(f"group_min: no kernel for device {rows.device}")
+    lib = build.library("group_min")
+    rows, cols, col_mask = (t.contiguous() for t in (rows, cols, col_mask))
+    b, n_rows = rows.shape[0], rows.shape[1]
+    out_m = torch.empty((b, n_rows, n_cols // g), dtype=torch.float32,
+                        device=rows.device)
+    out_s = torch.empty((b, n_rows, n_cols // g), dtype=torch.uint8,
+                        device=rows.device)
+    if b and n_rows:
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        build.check(lib.ptw_group_min(
+            rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
+            out_m.data_ptr(), out_s.data_ptr(), b, n_rows, n_cols, g,
+            n_block(n_cols), stream), "group_min")
+        group_min.launches += 1
+    return out_m, out_s
+
+
+group_min.launches = 0

@@ -1,8 +1,9 @@
-"""Device fusion of tile predictions onto the original cloud, per (fine,
-coarse) tile pair (port of the single-device path of
-pointstowood_tpu/predict/tpu_fusion.py: ``plan_fusion``,
+"""Device fusion of tile predictions onto the original cloud (port of the
+single-device paths of pointstowood_tpu/predict/tpu_fusion.py): the pair
+path per (fine, coarse) tile pair (``plan_fusion``,
 ``FlatLayout``/``FlatSink``, ``fuse_on_device`` and the median/vote tail
-of ``_pair_group``).
+of ``_pair_group``), and the index path (``tile_knn_indices``,
+``fusion_indices``) for the tilings the pair path declines.
 
 A point's nearest classified neighbours live in the tiles that classified
 its neighbourhood, one per grid scale. So instead of one global search of
@@ -37,6 +38,15 @@ the union into group minima and takes ``approx_min_k`` at recall 0.8.
 Near tile borders a point's true nearest neighbours can live in an
 adjacent tile; the per-pair candidates are then slightly farther, as in
 the JAX package.
+
+The index path (one grid scale, or ``--fusion tpu`` where the pair path
+declines) finds each row's 32 nearest classified points inside the tile
+of its cell at every scale, on the device through
+``ops.knn.knn_masked(method="fast")``: at a window cap of 32768 (tiles of
+more than 16384 points) that is the two-stage ``group_min`` route, below
+it ``knn_topk``. It returns neighbour indices; the median and vote are
+the host path's (``predict/fusion.py``). Rows no tile covers take the
+exact host search.
 """
 
 from __future__ import annotations
@@ -53,6 +63,8 @@ from pointstowood_tpu_torch.ops.fusion_kernels import (
     pair_select,
     quantize_payload,
 )
+from pointstowood_tpu_torch.ops.knn import knn_masked
+from pointstowood_tpu_torch.predict.fusion import knn_indices
 from pointstowood_tpu_torch.utils.device import resolve_device
 
 K_PER_SCALE = 32
@@ -182,6 +194,20 @@ def declines(tiles: Sequence[Tile], min_pts: int,
     return None
 
 
+def _tiles_of_cells(tiles: Sequence[Tile], scale: float, ids: np.ndarray):
+    """(tile index of each cell id among the tiles of grid size ``scale``,
+    -1 where no tile holds the cell (dropped by min_pts, or a non-finite
+    row's ``NAN_CELL``); the indices of that scale's tiles)."""
+    scale_tiles = [t for t in range(len(tiles)) if tiles[t].grid_size == scale]
+    by_cell = {tiles[t].cell_id: t for t in scale_tiles}
+    known = np.fromiter(by_cell.keys(), np.int64, len(by_cell))
+    tidx = np.fromiter(by_cell.values(), np.int64, len(by_cell))
+    so = np.argsort(known)
+    known, tidx = known[so], tidx[so]
+    pos = np.clip(np.searchsorted(known, ids), 0, len(known) - 1)
+    return np.where(known[pos] == ids, tidx[pos], -1), scale_tiles
+
+
 def _nearest_rows(queries: np.ndarray, points: np.ndarray) -> np.ndarray:
     """Nearest row of ``points`` (tile centroids) per query: chunked numpy
     brute force, or a KD-tree over the centroids for large products."""
@@ -222,17 +248,8 @@ def plan_fusion(
     tile_of = np.full((n_q, 2), -1, np.int64)
     n_near = 0
     for si, scale in enumerate(scales):
-        scale_tiles = [t for t in range(len(tiles))
-                       if tiles[t].grid_size == scale]
-        by_cell = {tiles[t].cell_id: t for t in scale_tiles}
-        ids = all_ids[:, si]
-        known = np.fromiter(by_cell.keys(), np.int64, len(by_cell))
-        tidx = np.fromiter(by_cell.values(), np.int64, len(by_cell))
-        so = np.argsort(known)
-        known, tidx = known[so], tidx[so]
-        pos = np.clip(np.searchsorted(known, ids), 0, len(known) - 1)
-        hit = known[pos] == ids
-        tile_of[:, si] = np.where(hit & finite, tidx[pos], -1)
+        tile_of[:, si], scale_tiles = _tiles_of_cells(tiles, scale,
+                                                      all_ids[:, si])
         miss = np.flatnonzero((tile_of[:, si] < 0) & finite)
         if miss.size:
             n_near += miss.size
@@ -370,3 +387,220 @@ def fuse_on_device(
     out[:, 0] = pv >> 11
     out[:, 1] = (pv & 0x7FF) * (1.0 / PWOOD_STEPS)
     return out
+
+
+# ---- the index path (tile_knn_indices / fusion_indices of tpu_fusion.py)
+
+QCHUNK = 8192  # queries per (tile, query chunk) pair
+# Padded distance pairs (query slots x source cap) per index-path launch.
+# Bounds what is live at once, the two-stage route's (pairs, queries,
+# cap / g) group minima: at cap 32768 (g = 8) 8 pairs of 8192 queries hold
+# 1 GiB of f32 minima and 0.25 GiB of slots; the top-k routes keep only
+# (pairs, queries, 32) outputs.
+MAX_PAIR_ELEMS = 1 << 31
+
+
+def _next_cap(n: int) -> int:
+    """Source window of a tile of n points: the next power of two from
+    2048 (the JAX fast kNN's group-min floor), so a window's kNN takes the
+    route JAX takes at that cap."""
+    cap = 2048
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def _launches(pairs, cap):
+    """Cut one cap's (tile, query rows) pairs into launches, largest
+    first: a launch pads every pair to its first pair's query count, so it
+    ends where a pair holds fewer than half of that, or where the padded
+    distance pairs would pass ``MAX_PAIR_ELEMS``."""
+    pairs = sorted(pairs, key=lambda p: -p[1].size)
+    out = []
+    for pair in pairs:
+        if out and (2 * pair[1].size >= out[-1][0][1].size
+                    and (len(out[-1]) + 1) * out[-1][0][1].size * cap
+                    <= MAX_PAIR_ELEMS):
+            out[-1].append(pair)
+        else:
+            out.append([pair])
+    return out
+
+
+def flat_tiles(tiles, order, device):
+    """The classified rows' xyz on ``device`` in batcher order, with room
+    for a window of the largest tile's cap past the last row; and each
+    tile's offset and length in it."""
+    offsets = np.zeros(len(tiles), np.int64)
+    off = 0
+    for j in order:
+        offsets[j] = off
+        off += len(tiles[j])
+    lens = np.array([len(t) for t in tiles], np.int64)
+    # every window [offset, offset + cap) stays inside the flat array
+    flat = torch.zeros((off + _next_cap(int(lens.max())), 3),
+                       dtype=torch.float32, device=device)
+    rows = np.concatenate([tiles[t].points[:, :3] for t in order])
+    flat[:off] = torch.from_numpy(rows.astype(np.float32)).to(device)
+    return flat, offsets, lens
+
+
+def source_windows(flat_xyz, offsets, lens, tile_ids, cap):
+    """Each tile's window of ``cap`` flat rows from its offset, (B, cap, 3),
+    and its mask, (B, cap) bool: True on the tile's own rows."""
+    dev = flat_xyz.device
+    off = torch.from_numpy(offsets[tile_ids]).to(dev)
+    iota = torch.arange(cap, device=dev)
+    mask = iota < torch.from_numpy(lens[tile_ids]).to(dev)[:, None]
+    return flat_xyz[off[:, None] + iota], mask
+
+
+def _knn_launch(flat_xyz, query_xyz, batch, offsets, lens, cap):
+    """The tile-local kNN of one launch of (tile, query rows) pairs on the
+    device: each pair's queries against its tile's window of ``cap``
+    classified rows (``knn_masked(method="fast")``, which routes by cap).
+    Returns, for the live query slots, (query row, classified rows
+    (n, 32), d2 (n, 32), row valid (n,))."""
+    dev = flat_xyz.device
+    qmax = max(qs.size for _, qs in batch)
+    q_idx = np.zeros((len(batch), qmax), np.int64)
+    q_live = np.zeros((len(batch), qmax), bool)
+    for bi, (_, qs) in enumerate(batch):
+        q_idx[bi, :qs.size] = qs
+        q_live[bi, :qs.size] = True
+    tile_ids = np.array([t for t, _ in batch])
+    qi = torch.from_numpy(q_idx).to(dev)
+    live = torch.from_numpy(q_live).to(dev)
+    off = torch.from_numpy(offsets[tile_ids]).to(dev)
+    cols, src_mask = source_windows(flat_xyz, offsets, lens, tile_ids, cap)
+    idx, d2, valid = knn_masked(query_xyz[qi], cols, K_PER_SCALE,
+                                query_mask=live, source_mask=src_mask,
+                                method="fast")
+    # min_pts >= 32 gives every live query 32 valid slots, so slots die
+    # only wholesale: one flag per row
+    return (qi[live], (idx + off[:, None, None])[live], d2[live],
+            valid.all(-1)[live])
+
+
+def tile_knn_indices(
+    tiles: Sequence[Tile],
+    order: Sequence[int],
+    query_xyz: np.ndarray,
+    min_pts: int,
+    need_d2: bool = True,
+    device=None,
+):
+    """Per-scale tile-local kNN of every query row, on ``device`` (default
+    CUDA): each row queries the 32 nearest classified points of the tile
+    that holds its cell at each grid scale.
+
+    tiles/order: the classified tiles and the batcher order (classified
+    row r of tile ``order[j]`` is row offset[j] + r of the classified
+    array). Returns (idx, d2, covered): idx (N, 32 * n_scales) int64 rows
+    into the classified array; d2 the matching exact squared distances
+    (None unless ``need_d2``); covered (N,) bool, False for rows that no
+    scale covers (their cell has no tile, or non-finite coordinates):
+    they need the host search. A scale that misses a covered row gets the
+    first covering scale's block of indices with +inf distances (as
+    tpu_fusion.py:373-389). Tilings the path cannot serve (``min_pts <
+    32``, tiles without a cell id) return (N, 0) arrays and nothing
+    covered.
+
+    The tile points and the queries go to the device once; the queries
+    of each tile are cut into chunks of ``QCHUNK``, and the (tile, chunk)
+    pairs of one window cap run in launches (``_launches``)."""
+    dev = resolve_device(device)
+    n_q = query_xyz.shape[0]
+    if min_pts < K_PER_SCALE or any(t.cell_id < 0 for t in tiles):
+        return (np.zeros((n_q, 0), np.int64), np.zeros((n_q, 0)),
+                np.zeros(n_q, bool))
+    scales = sorted({t.grid_size for t in tiles})
+    n_scales = len(scales)
+    flat, offsets, lens = flat_tiles(tiles, order, dev)
+    xyz32 = query_xyz.astype(np.float32)
+    qdev = torch.from_numpy(xyz32).to(dev)
+
+    k_total = K_PER_SCALE * n_scales
+    idx_out = torch.zeros((n_q, k_total), dtype=torch.int64, device=dev)
+    d2_out = (torch.full((n_q, k_total), torch.inf, device=dev)
+              if need_d2 else None)
+    valid_scale = torch.zeros((n_q, n_scales), dtype=torch.bool, device=dev)
+    all_ids = cell_ids_multi(xyz32, scales)
+    for si, scale in enumerate(scales):
+        tile_of, _ = _tiles_of_cells(tiles, scale, all_ids[:, si])
+        work: dict = {}  # cap -> [(tile, query rows)]
+        qorder = np.argsort(tile_of, kind="stable")
+        qorder = qorder[tile_of[qorder] >= 0]
+        bounds = np.flatnonzero(np.diff(tile_of[qorder])) + 1
+        for grp in np.split(qorder, bounds):
+            if grp.size == 0:
+                continue
+            t = int(tile_of[grp[0]])
+            pairs = work.setdefault(_next_cap(int(lens[t])), [])
+            pairs += [(t, grp[s0:s0 + QCHUNK])
+                      for s0 in range(0, grp.size, QCHUNK)]
+        col = slice(si * K_PER_SCALE, (si + 1) * K_PER_SCALE)
+        for cap, pairs in sorted(work.items()):
+            for launch in _launches(pairs, cap):
+                rows, idx, d2, row_valid = _knn_launch(
+                    flat, qdev, launch, offsets, lens, cap)
+                idx_out[rows, col] = torch.where(row_valid[:, None], idx, 0)
+                if need_d2:
+                    d2_out[rows, col] = torch.where(row_valid[:, None], d2,
+                                                    torch.inf)
+                valid_scale[rows, si] = row_valid
+
+    # the scale-fill rule: a row that some scale covers takes that
+    # scale's block wherever another scale missed it, with +inf distances
+    # there, so the k = 64 median/vote sees duplicates (invariant) and the
+    # k = 32 merge selects the covered scale's 32 distinct neighbours
+    covered = valid_scale.any(1)
+    blocks = idx_out.view(n_q, n_scales, K_PER_SCALE)
+    first = valid_scale.to(torch.int32).argmax(1)
+    fill = blocks[torch.arange(n_q, device=dev), first]
+    for si in range(n_scales):
+        need = covered & ~valid_scale[:, si]
+        blocks[need, si] = fill[need]
+        if need_d2:
+            d2_out.view(n_q, n_scales, K_PER_SCALE)[need, si] = torch.inf
+    return (idx_out.cpu().numpy(),
+            d2_out.cpu().numpy() if need_d2 else None,
+            covered.cpu().numpy())
+
+
+def fusion_indices(
+    tiles: Sequence[Tile],
+    order: Sequence[int],
+    classified_xyz: np.ndarray,
+    query_xyz: np.ndarray,
+    k: int,
+    min_pts: int,
+    cluster_features: bool = False,
+    device=None,
+):
+    """(N, k) fusion neighbour rows into the classified array, and the
+    number of rows searched on the host: the tile-local device kNN
+    (``tile_knn_indices``) for covered rows, the exact host search
+    (``fusion.knn_indices``) for the rest. Where the tiling has fewer than
+    k per-scale candidates (one scale at k = 64), ``cluster_features``
+    tilings (their cell ids pack the full feature tensor, incomparable
+    with the xyz-only ids recomputed here), or a tiling
+    ``tile_knn_indices`` cannot serve, every row takes the host search.
+    With more candidates than k (several scales at k = 32), each row keeps
+    the k nearest of its per-scale union by exact distance."""
+    n_q = query_xyz.shape[0]
+    n_scales = len({t.grid_size for t in tiles})
+    if n_scales * K_PER_SCALE < k or cluster_features:
+        return knn_indices(classified_xyz, query_xyz, k), n_q
+    need_d2 = n_scales * K_PER_SCALE > k
+    idx, d2, covered = tile_knn_indices(tiles, order, query_xyz, min_pts,
+                                        need_d2=need_d2, device=device)
+    if idx.shape[1] < k:
+        return knn_indices(classified_xyz, query_xyz, k), n_q
+    if need_d2:
+        part = np.argpartition(d2, k - 1, axis=1)[:, :k]
+        idx = np.take_along_axis(idx, part, axis=1)
+    rows = np.flatnonzero(~covered)
+    if rows.size:
+        idx[rows] = knn_indices(classified_xyz, query_xyz[rows], k)
+    return idx, int(rows.size)

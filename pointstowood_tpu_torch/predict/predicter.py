@@ -6,7 +6,7 @@ pointstowood_tpu/predict/predicter.py).
 Tiles stream through ``forward_probs`` one padded batch at a time; the
 probabilities come back with the per-tile centring undone
 (reference predicter.py:211-214). ``semantic_segmentation`` then labels
-every original point, on the device pair path
+every original point, on the device pair path or the device index path
 (``predict/device_fusion.py``) where the tiling allows it, else on the
 host path (``predict/fusion.py``).
 """
@@ -151,48 +151,68 @@ def semantic_segmentation(
     column table ``pc``; returns a new table with ``label`` and ``pwood``
     set. ``net`` must live on ``device`` (default CUDA).
 
-    Fusion path (``predict_cfg.fusion``): ``auto`` takes the device pair
-    path whenever ``device_fusion.declines`` accepts the tiling, else the
-    host path; ``tpu`` (the JAX flag's spelling) demands the pair path and
-    raises where it declines; ``host`` takes the host path. One line says
-    which path ran. The fusion plan (pair path) or the host kNN index
-    (host path) is built in a worker thread while the model runs.
+    Fusion path (``predict_cfg.fusion``), as the JAX package chooses it
+    (pointstowood_tpu/predict/predicter.py:253-270, 329-361):
+
+    * the device pair path where ``device_fusion.declines`` accepts the
+      tiling and the mode is not ``host``;
+    * else the index path (``device_fusion.fusion_indices``: tile-local
+      kNN on the device, the host search for uncovered rows) where the
+      mode is ``tpu``, or ``auto`` with no ``cluster_features``,
+      ``min_pts >= 32``, k <= 32 per grid scale and every tile carrying a
+      cell id (one grid scale at ``any_wood != 1``);
+    * else the host path (scipy ``cKDTree`` over every classified point).
+
+    One ``fusion:`` line names the path taken and the rows searched on the
+    host. The fusion plan (pair path) or the host kNN index (host path) is
+    built in a worker thread while the model runs; the index path runs on
+    the device after it.
 
     ``profile_dir``: write a torch.profiler trace of the model phase
     there. ``timings`` (optional dict) receives per-phase seconds:
-    ``model``, ``fusion_plan`` (worker thread, overlapped with the model),
-    ``fusion_wait`` and ``fusion``."""
+    ``model``, ``fusion_plan`` (worker thread, overlapped with the model;
+    pair and host paths), ``fusion_wait``, ``fusion_index`` (index path)
+    and ``fusion``."""
     dev = resolve_device(device)
     timings = {} if timings is None else timings
     cluster_features = tiling_cfg.cluster_features
     mode = predict_cfg.fusion
     if mode not in ("auto", "host", "tpu"):
         raise ValueError(f"unknown fusion mode {mode!r}")
-    reason = device_fusion.declines(tiles, tiling_cfg.min_pts,
-                                    cluster_features)
-    if mode == "tpu" and reason is not None:
-        raise ValueError(
-            f"--fusion tpu: the device pair path declines this tiling "
-            f"({reason}); use --fusion auto or host")
-    use_pair = mode != "host" and reason is None
-
     batcher = tile_batcher(tiles, predict_cfg, tiling_cfg)
     order = batcher.tile_order()
     query_xyz = xyz_of(pc)
-    sink = device_fusion.sink_for(tiles, batcher, dev) if use_pair else None
+    k = min(64 if predict_cfg.any_wood == 1 else 32,
+            int(sum(len(tiles[ti]) for ti in order)))
+    n_scales = len({t.grid_size for t in tiles})
+    reason = device_fusion.declines(tiles, tiling_cfg.min_pts,
+                                    cluster_features)
+    if mode != "host" and reason is None:
+        path = "pair"
+    elif mode == "tpu" or (
+            mode == "auto" and not cluster_features
+            and tiling_cfg.min_pts >= device_fusion.K_PER_SCALE
+            and k <= device_fusion.K_PER_SCALE * n_scales
+            and all(t.cell_id >= 0 for t in tiles)):
+        path = "index"
+    else:
+        path = "host"
+    sink = (device_fusion.sink_for(tiles, batcher, dev) if path == "pair"
+            else None)
+
+    def source_xyz():
+        return np.concatenate([tiles[ti].points[:, :3] for ti in order])
 
     def prepare():
         t = time.perf_counter()
-        if use_pair:
+        if path == "pair":
             out = device_fusion.plan_fusion(
                 tiles, query_xyz, tiling_cfg.min_pts, sink.layout,
                 cluster_features=cluster_features)
+        elif path == "host":
+            out = knn_indices(source_xyz(), query_xyz, k)
         else:
-            k = min(64 if predict_cfg.any_wood == 1 else 32,
-                    int(sum(len(tiles[ti]) for ti in order)))
-            source_xyz = np.concatenate(
-                [tiles[ti].points[:, :3] for ti in order])
-            out = knn_indices(source_xyz, query_xyz, k)
+            return None
         timings["fusion_plan"] = time.perf_counter() - t
         return out
 
@@ -227,19 +247,29 @@ def semantic_segmentation(
     t2 = time.perf_counter()
     timings["fusion_wait"] = t2 - t1
     fusion = Fusion(predict_cfg.is_wood, predict_cfg.any_wood, device=dev)
-    if use_pair:
+    n_host = 0
+    if path == "pair":
         fused = device_fusion.fuse_on_device(
             prep, sink.arrays(), query_xyz, predict_cfg.is_wood,
             predict_cfg.any_wood, verbose=verbose, device=dev,
             timings=timings)
         out = fusion.collect_predictions(None, pc, fused=fused)
         how = "device pair path (pair_select kernel + torch median/vote)"
+    elif path == "index":
+        indices, n_host = device_fusion.fusion_indices(
+            tiles, order, source_xyz(), query_xyz, k, tiling_cfg.min_pts,
+            cluster_features=cluster_features, device=dev)
+        timings["fusion_index"] = time.perf_counter() - t2
+        out = fusion.collect_predictions(classified, pc, indices=indices)
+        how = (f"index path (tile-local device kNN, k={k} + torch "
+               f"median/vote; pair path declined: {reason})")
     else:
         out = fusion.collect_predictions(classified, pc, indices=prep)
+        n_host = len(query_xyz)
         how = ("host path (scipy cKDTree + torch median/vote"
                + (f"; pair path declined: {reason})" if reason else ")"))
     _sync(dev)
     timings["fusion"] = time.perf_counter() - t2
-    print(f"fusion: {how}, {len(query_xyz)} points in "
-          f"{timings['fusion']:.2f}s")
+    print(f"fusion: {how}, {len(query_xyz)} points, {n_host} searched on "
+          f"the host, in {timings['fusion']:.2f}s")
     return out

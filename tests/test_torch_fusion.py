@@ -39,6 +39,18 @@ from pointstowood_tpu_torch.predict.predicter import tile_batcher
 _KW = dict(grid_size=(2.0, 4.0), min_pts=64, max_pts=4096)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several test processes on the host's cores at once,
+    and a full team of torch intra-op threads per process makes each wait
+    for cores the others hold (on the full suite this file took 47 s,
+    against ~10 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cloud(n=6000, seed=0):
     """tests/test_tpu_fusion.py's trunk-and-crown cloud."""
     rng = np.random.default_rng(seed)

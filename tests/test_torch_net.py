@@ -38,6 +38,19 @@ from pointstowood_tpu_torch.utils.checkpoint_convert import (
     state_dict_from_flax,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several test processes on the host's cores at once,
+    and a full team of torch intra-op threads per process makes each wait
+    for cores the others hold (on the full suite this file took 80 s,
+    against ~20 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 C = 8
 
 

@@ -29,6 +29,18 @@ FLAGS = ["--channels", "8", "--dtype", "float32", "--exact_knn",
          "--min_pts", "64", "--max_pts", "1024", "--batch_size", "2"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several test processes on the host's cores at once,
+    and a full team of torch intra-op threads per process makes each wait
+    for cores the others hold (on the full suite this file took 239 s,
+    against ~40 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(seed=7, n1=1500, n2=2500):
     """The verify recipe's trunk-and-crown tree, reflectance bright on
     wood, with an extra column."""
@@ -163,9 +175,12 @@ def test_port_cli_reruns_on_its_own_output_and_reads_pcd(runs, tmp_path):
     assert len(out["x"]) == len(src["x"])
 
 
-def test_fusion_modes(runs, tmp_path):
+def test_fusion_modes(runs, tmp_path, capsys):
     """``host`` fuses alike on the dual grid; ``tpu`` on a single-scale
-    tiling raises instead of substituting the host search."""
+    tiling does what the JAX package does (predicter.py:253-270, 352-358):
+    the index path, which at any-wood 1 (k = 64, more than the 32
+    candidates of one scale) searches every row on the host, exactly as
+    ``auto`` there (the host path)."""
     shutil.copy(runs["cloud"], tmp_path / "c.ply")
     args = ["--point-cloud", str(tmp_path / "c.ply"), "--model",
             runs["model"]] + FLAGS
@@ -173,9 +188,21 @@ def test_fusion_modes(runs, tmp_path):
     host = read_ply(str(tmp_path / "c_ours.ply"))
     assert (host["label"] == runs["port"]["label"]).mean() >= 0.98
     assert np.abs(host["pwood"] - runs["port"]["pwood"]).mean() < 0.02
-    with pytest.raises(ValueError, match="declines"):
-        t_cli.main(args + ["--fusion", "tpu", "--grid_size", "4.0"],
+    single = {}
+    for mode in ("tpu", "auto"):
+        capsys.readouterr()
+        t_cli.main(args + ["--fusion", mode, "--grid_size", "4.0"],
                    device="cpu")
+        line = [s for s in capsys.readouterr().out.splitlines()
+                if s.startswith("fusion:")]
+        assert len(line) == 1, line
+        single[mode] = (line[0], read_ply(str(tmp_path / "c_ours.ply")))
+    n = len(host["x"])
+    assert single["tpu"][0].startswith("fusion: index path")
+    assert f"{n} points, {n} searched on the host" in single["tpu"][0]
+    assert single["auto"][0].startswith("fusion: host path")
+    for c in ("label", "pwood"):
+        assert np.array_equal(single["tpu"][1][c], single["auto"][1][c])
 
 
 def test_cli_errors(runs, tmp_path):
