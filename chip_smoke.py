@@ -2,7 +2,16 @@
 """Smoke test of the PyTorch/CUDA port (``pointstowood_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare-with DIR]
+
+With ``--compare-with DIR`` (an earlier tree's ``knn.cu`` and
+``fusion.cu``, with any header they include), ``knn_topk`` at SA1-SA3,
+``knn_top2`` at its three shapes and ``pair_select`` over the plot's
+entries are also timed with that tree's kernels, built by the port's own
+build (``build.library(name, DIR)``) and launched through the port's
+wrappers on the same inputs, in turns (earlier, current, current,
+earlier): each row gains ``compared_ms`` and ``turns_ms``. A kernel PR
+uses it to time its new kernel against its parent's in one call.
 
 Phases, each printing one JSON line (any failed check raises, so the script
 exits non-zero and prints no final line):
@@ -14,8 +23,20 @@ exits non-zero and prints no final line):
 3. kernel   -- each forward kernel at the shapes the canonical eval forward
                (B=8 tiles x 16384 points, C=32, bf16, fast kNN) gives it,
                held against its plain PyTorch version on the same CUDA
-               inputs, with its time, the plain version's time, a one-call
-               PyTorch yardstick where one exists, and its bound.
+               inputs (the selections ``knn_topk``/``knn_top2`` bit for
+               bit), with its time, the plain version's time, a one-call
+               PyTorch yardstick where one exists and its bound. At the
+               top-2 shapes (phase ``top2_route``) ``knn_top2`` and
+               ``knn_topk``'s warp selection at K = 2, bit for bit against
+               the plain version and timed in turns.
+               Then (phase ``adversarial``) the selections on inputs that
+               break a wrong one, each bit for bit against its plain
+               version: duplicated columns, descending distances, fewer
+               columns than k, a ragged column count with a NaN row and
+               masks, a fully masked batch, 1 and 33 rows, ``knn_top2``
+               and ``knn_topk`` at k = 2/8/16/32;
+               ``pair_select`` entries with empty fine or coarse regions,
+               a union shorter than k, q_len 0 and Q, a NaN query.
 4. forward  -- ``run_inference`` over a synthetic plot (8 full 16384-point
                tiles and a few smaller ones, two capacity buckets) with
                seeded random weights loaded through ``state_dict_from_flax``;
@@ -106,13 +127,16 @@ JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -143,6 +167,39 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_usage(log: str) -> dict:
+    """Registers, spill bytes and shared memory of every kernel entry in
+    nvcc's ``-Xptxas -v`` output, by kernel name (demangled by
+    ``cu++filt``, which ships with nvcc, up to its argument list)."""
+    import re
+
+    from pointstowood_tpu_torch.ops import build
+
+    blocks = log.split("Compiling entry function")[1:]
+    names = [re.search(r"'([^']*)'", block).group(1) for block in blocks]
+    filt = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
+    if names and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout
+        # "void <unnamed>::knn_topk_kernel<(int)32>(const float *, ...)"
+        # -> "knn_topk_kernel<32>"
+        names = [re.sub(r"<unnamed>::|\((?:unsigned )?int\)", "", n)
+                 .split("(")[0].removeprefix("void ")
+                 for n in out.splitlines()]
+    usage = {}
+    for name, block in zip(names, blocks):
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        usage[name] = {"registers": int(regs.group(1)) if regs else None,
+                       "spill_stores": int(spill.group(1)) if spill else None,
+                       "spill_loads": int(spill.group(2)) if spill else None,
+                       "smem_bytes": int(smem.group(1)) if smem else 0}
+    return usage
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
     import torch
@@ -166,6 +223,44 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     t_ops = ops / FP32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def in_turns(time_a, time_b) -> tuple[float, float, list]:
+    """Two timings taken in turns (a, b, b, a): (a's mean ms, b's mean ms,
+    the four turns)."""
+    turns = [time_a(), time_b(), time_b(), time_a()]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+@contextlib.contextmanager
+def kernels_from(src_dir: str):
+    """Within it, the port's wrappers launch the kernels that
+    ``build.library`` builds from ``src_dir`` (an earlier tree's csrc)."""
+    from pointstowood_tpu_torch.ops import build
+
+    own = build.library
+    build.library = functools.partial(own, csrc=Path(src_dir))
+    try:
+        yield
+    finally:
+        build.library = own
+
+
+def timed(call, compare_with=None, **timing) -> tuple:
+    """(ms, earlier ms, turns) of ``call``: with ``compare_with`` (a
+    source directory) timed in turns with that directory's kernels
+    (earlier, current, current, earlier), else alone (earlier ms and
+    turns None)."""
+    if compare_with is None:
+        return cuda_ms(call, **timing), None, None
+
+    def earlier():
+        with kernels_from(compare_with):
+            return cuda_ms(call, **timing)
+
+    compared_ms, ms, turns = in_turns(
+        earlier, lambda: cuda_ms(call, **timing))
+    return ms, compared_ms, turns
 
 
 # ---------------------------------------------------------------- data
@@ -340,51 +435,141 @@ def select_all(fn, entries, k):
 # ---------------------------------------------------------------- checks
 
 
-def check_select(name, d_k, i_k, d_p, i_p):
-    """Kernel vs plain top-k: the same finite slots, distances equal to
-    within 1e-5 relative (FMA contraction may move the last ulp), and an
-    index differing only where its distance is a near-tie of the plain
-    version's. Returns the largest absolute distance difference."""
-    import torch
-
-    fin = torch.isfinite(d_p)
-    if not torch.equal(torch.isfinite(d_k), fin):
-        raise AssertionError(f"{name}: finite slots differ")
-    diff = (d_k - d_p).abs()[fin]
-    tol = 1e-5 * d_p.abs()[fin] + 1e-12
-    if bool((diff > tol).any()):
-        raise AssertionError(
-            f"{name}: distance differs by {float(diff.max())}")
-    moved = (i_k != i_p) & fin
-    frac = float(moved.float().mean())
-    if frac > 1e-3:
-        raise AssertionError(f"{name}: {frac:.2e} of slots hold another "
-                             "index (more than near-ties explain)")
-    return float(diff.max()) if diff.numel() else 0.0
-
-
-def check_exact(name, d_k, p_k, d_p, p_p):
-    """Kernel vs plain pair selection: the kernel computes the plain
-    version's rounded difference-form d2 and breaks ties to the lower
-    union index, so distances and payloads must be equal bit for bit."""
+def check_exact(name, d_k, i_k, d_p, i_p):
+    """Kernel vs plain selection (``knn_topk``, ``knn_top2``,
+    ``pair_select``): the kernels compute the plain versions' rounded
+    difference-form d2 and break ties to the lower column (union) index,
+    so distances and indices (payloads) must be equal bit for bit."""
     import torch
 
     if not torch.equal(d_k, d_p):
         raise AssertionError(f"{name}: distances differ from the plain "
                              "version")
-    if not torch.equal(p_k, p_p):
-        moved = float((p_k != p_p).float().mean())
+    if not torch.equal(i_k, i_p):
+        moved = float((i_k != i_p).float().mean())
         raise AssertionError(f"{name}: {moved:.2e} of slots hold another "
-                             "payload")
+                             "index or payload")
     return 0.0
 
 
-def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
+def adversarial_knn_inputs(seed):
+    """Inputs that break a wrong selection, from numpy: (name, rows
+    (2, R, 3), cols (2, C, 3), mask (2, C)) for R in {1, 33}; batch 1 of
+    every case is fully masked. Duplicated columns (40 points 64 times
+    each, shuffled: exact ties across lanes and shared-memory tiles),
+    columns in descending-distance order (each beats every column
+    before it), 5 columns (fewer than k), and 2085 random columns (not a
+    multiple of the tile) with a masked fifth and one NaN row."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for n_rows in (1, 33):
+        rows = (rng.normal(size=(2, n_rows, 3)) * 0.1).astype(np.float32)
+        base = rng.normal(size=(40, 3))
+        dup = np.repeat(base, 64, axis=0)[rng.permutation(2560)]
+        x = np.linspace(50.0, 1.0, 3000)
+        desc = np.stack([x, np.zeros_like(x), np.zeros_like(x)], 1)
+        short = rng.normal(size=(5, 3))
+        ragged = rng.normal(size=(2085, 3))
+        for name, cols in (("duplicated columns", dup),
+                           ("descending distances", desc),
+                           ("5 columns", short),
+                           ("2085 columns, NaN row", ragged)):
+            r = rows.copy()
+            mask = np.ones((2, len(cols)), bool)
+            mask[1] = False
+            if name.startswith("2085"):
+                mask[0] = rng.random(len(cols)) >= 0.2
+                r[0, n_rows // 2, 1] = np.nan
+            cases.append((f"{name}, {n_rows} rows", r,
+                          np.stack([cols, cols]).astype(np.float32), mask))
+    return cases
+
+
+def adversarial_pair_inputs(seed):
+    """``pair_select`` entries that break a wrong selection, from numpy:
+    (queries (6, 100, 3), q_len (6,), src (N, 3), pay (N,), regions
+    (6, 4)). Entry 0: fine and coarse regions holding the same points
+    (ties across regions go to the fine copy), q_len = Q; 1: an empty
+    fine region; 2: an empty coarse region; 3: a union of 20 rows (fewer
+    than k); 4: q_len 0; 5: a union of 2085 rows in descending-distance
+    order (not a multiple of the tile), with one NaN query row."""
+    rng = np.random.default_rng(seed)
+    n_q = 100
+    dup = rng.integers(-3, 4, size=(1500, 3))
+    x = np.linspace(50.0, 1.0, 2085)
+    desc = np.stack([x, np.zeros_like(x), np.zeros_like(x)], 1)
+    src = np.concatenate([dup, dup[rng.permutation(1500)], desc,
+                          rng.normal(size=(400, 3))]).astype(np.float32)
+    pay = rng.integers(0, 1024, size=len(src)).astype(np.int32)
+    regions = np.array([[0, 1500, 1500, 1500],
+                        [0, 0, 1500, 1500],
+                        [3000, 2085, 0, 0],
+                        [5085, 12, 5097, 8],
+                        [0, 1500, 1500, 1500],
+                        [3000, 1000, 4000, 1085]], np.int32)
+    q_len = np.array([n_q, 37, 1, 64, 0, 77], np.int32)
+    queries = rng.integers(-3, 4, size=(6, n_q, 3)).astype(np.float32)
+    queries[2:4] = rng.normal(size=(2, n_q, 3))
+    queries[5] = rng.normal(size=(n_q, 3)) * 0.1
+    queries[5, 40] = np.nan
+    return queries, q_len, src, pay, regions
+
+
+def adversarial_phase(dev):
+    """Phase ``adversarial``: every case of ``adversarial_knn_inputs``
+    through ``knn_topk`` at k = 2, 8, 16 and 32 and ``knn_top2``, and
+    ``adversarial_pair_inputs`` through ``pair_select`` at k = 32 and 64,
+    each held bit for bit against its plain version."""
+    import torch
+
+    from pointstowood_tpu_torch.ops.fusion_kernels import (
+        pair_select,
+        pair_select_plain,
+    )
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        knn_top2,
+        knn_topk,
+        select_plain,
+    )
+
+    checked = []
+    for name, rows, cols, mask in adversarial_knn_inputs(SEED):
+        r, c, m = (torch.from_numpy(a).to(dev) for a in (rows, cols, mask))
+        for fn, k in ((knn_top2, 2), (knn_topk, 2), (knn_topk, 8),
+                      (knn_topk, 16), (knn_topk, 32)):
+            d_k, i_k = fn(r, c, m) if fn is knn_top2 else fn(r, c, m, k)
+            torch.cuda.synchronize()
+            d_p, i_p = select_plain(r, c, m, k)
+            label = f"{name}, {fn.__name__} k={k}"
+            check_exact(f"adversarial {label}", d_k, i_k, d_p, i_p)
+            checked.append(label)
+    entries = [torch.from_numpy(a).to(dev)
+               for a in adversarial_pair_inputs(SEED)]
+    for k in (32, 64):
+        d_k, p_k = pair_select(*entries, k)
+        torch.cuda.synchronize()
+        d_p, p_p = pair_select_plain(*entries, k)
+        check_exact(f"adversarial pair_select k={k}", d_k, p_k, d_p, p_p)
+        if not (torch.isinf(d_k[4]).all() and torch.isinf(d_k[5, 40]).all()
+                and torch.isinf(d_k[3, :, 20:]).all()):
+            raise AssertionError("adversarial pair_select: a dead query, "
+                                 "the NaN row or a short union's tail is "
+                                 "not (+inf, 0)")
+        checked.append(f"pair_select entries, k={k}")
+    return emit("adversarial", cases=len(checked), checked=checked,
+                tolerance="bit for bit (torch.equal on d2 and index or "
+                          "payload)")
+
+
+def serving_phases(net, dev, smi, rows, wrappers, compare_with=None,
+                   n_side=6):
     """Phases 6-8: the predict CLI over the synthetic plot (n_side x
     n_side trees), ``pair_select`` on its entries, and the pair path
     against the host path. Appends the pair_select rows to ``rows`` and
-    sets every row's ``launches`` from the predict run. Returns the plot's
-    PLY path, its truth (wood) column and the seeded ``.pth``."""
+    sets every row's ``launches`` from the predict run; with
+    ``compare_with`` (a source directory) it times that tree's
+    pair_select in turns with the current one. Returns the plot's PLY
+    path, its truth (wood) column and the seeded ``.pth``."""
     import torch
 
     from pointstowood_tpu_torch.cli import predict as predict_cli
@@ -488,8 +673,9 @@ def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
         torch.cuda.synchronize()
         d_p, p_p = select_all(pair_select_plain, entries, k_out)
         err = check_exact(name, d_k, p_k, d_p, p_p)
-        ms = cuda_ms(lambda: select_all(pair_select, entries, k_out),
-                     reps=5, warmup=1)
+        ms, compared_ms, turns = timed(
+            lambda: select_all(pair_select, entries, k_out), compare_with,
+            reps=5, warmup=1)
         plain_ms = cuda_ms(lambda: select_all(pair_select_plain, entries,
                                               k_out), reps=1, warmup=0)
 
@@ -519,7 +705,9 @@ def serving_phases(net, dev, smi, rows, wrappers, n_side=6):
             "launches": launches["pair_select"],
             "on_default_path": k_out == 64,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "bound_ms": bms, "bound_by": by,
+            "compared_ms": compared_ms, "turns_ms": turns,
+            "library_ms": lib_ms,
             "library_call": "per entry: torch.topk(torch.cdist(q, union), "
                             "k) + payload gather, over every entry of the "
                             "plot",
@@ -727,7 +915,6 @@ def predict_large_phases(dev, smi, rows, wrappers, large, model_path):
     fusion phases; then ``fusion_indices`` against exact host fusion on a
     seeded sample of 50 000 rows, with the trunk field as
     probabilities."""
-    import contextlib
     import io
 
     import torch
@@ -1255,7 +1442,7 @@ def kernel_family(name: str) -> str:
     """Coarse family of a CUDA kernel name, for the train-step breakdown."""
     low = name.lower()
     for fam, keys in (
-            ("port kernels (csrc/*.cu)", ("knn_select", "knn_top2",
+            ("port kernels (csrc/*.cu)", ("knn_topk", "knn_top2",
                                           "interp_blend", "cast_bf16",
                                           "pair_select", "group_min")),
             ("GEMM", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
@@ -1335,9 +1522,18 @@ def train_cli_phase(dev, smi, wrappers, eval_ply, eval_wood, n_side=6):
     return rec
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--compare-with", metavar="DIR",
+        help="a directory holding an earlier tree's knn.cu and fusion.cu "
+             "(with their headers): its knn_topk, knn_top2 and pair_select "
+             "are timed in turns with the current ones at the same shapes")
+    compare_with = parser.parse_args(argv).compare_with
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1381,13 +1577,24 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     # ---- 2. build
+    import io
+
     t0 = time.perf_counter()
-    build.build_all(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        build.build_all(verbose=True)
+    print(log.getvalue(), end="", flush=True)
     for name in build.SOURCES:
         build.library(name)
     emit("build", seconds=time.perf_counter() - t0,
          sources=[f"pointstowood_tpu_torch/csrc/{n}.cu"
-                  for n in build.SOURCES])
+                  for n in build.SOURCES],
+         ptxas=ptxas_usage(log.getvalue()))
+    if compare_with:
+        t0 = time.perf_counter()
+        build.build_all(("knn", "fusion"), csrc=Path(compare_with))
+        emit("build_compared", source=compare_with,
+             seconds=time.perf_counter() - t0)
 
     # ---- 3. kernels at the canonical shapes
     tiles = synthetic_tiles(SEED)
@@ -1422,10 +1629,22 @@ def main() -> int:
         d_k, i_k = call()
         torch.cuda.synchronize()
         d_p, i_p = select_plain(r, c, cm, kk)
-        err = check_select(name, d_k, i_k, d_p, i_p)
+        err = check_exact(name, d_k, i_k, d_p, i_p)
         selected[name] = (i_k, d_k)
         b, nr, nc = r.shape[0], r.shape[1], c.shape[1]
-        ms = cuda_ms(call)
+        ms, compared_ms, turns = timed(call, compare_with)
+        if fn is knn_top2:
+            # the warp selection at K = 2 on the same inputs
+            def warp_select():
+                return knn_topk(r, c, cm, 2)
+            d_w, i_w = warp_select()
+            torch.cuda.synchronize()
+            check_exact(f"{name} (knn_topk, k=2)", d_w, i_w, d_p, i_p)
+            top2_ms, warp_ms, route_turns = in_turns(
+                lambda: cuda_ms(call), lambda: cuda_ms(warp_select))
+            emit("top2_route", name=name, shape=[b, nr, nc, 2],
+                 knn_top2_ms=top2_ms, knn_topk_k2_ms=warp_ms,
+                 turns_ms=route_turns)
         plain_ms = cuda_ms(lambda: select_plain(r, c, cm, kk), reps=3,
                            warmup=1)
         lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(r, c), kk, dim=-1,
@@ -1437,10 +1656,12 @@ def main() -> int:
             "replaces": replaces, "wrapper": fn.__name__,
             "shape": [b, nr, nc, kk], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "compared_ms": compared_ms, "turns_ms": turns,
             "library_ms": lib_ms,
             "library_call": "torch.topk(torch.cdist(rows, cols)), no mask",
         })
         emit("kernel", **rows[-1])
+    adversarial_phase(dev)
 
     # K3 at FP3 (the FP3 top-2 above), FP2 and FP1 (the SA2 and SA1
     # transposes): 512 bf16 channels on the coarser level's points,
@@ -1601,7 +1822,7 @@ def main() -> int:
         raise AssertionError("CPU and card disagree on the full tile")
 
     eval_ply, eval_wood, model_path = serving_phases(
-        net, dev, smi, rows, wrappers)
+        net, dev, smi, rows, wrappers, compare_with)
 
     # ---- 9-12. large tiles, on a denser plot whose 4 m cells fill the
     # 24576 and 32768 buckets: group_min on its main path's inputs, one

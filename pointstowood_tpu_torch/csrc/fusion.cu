@@ -14,48 +14,50 @@
 // (fine before coarse), as (d2, payload): the payload is the source's
 // 10-bit quantized wood probability round(clip(p, 0, 1) * 1023), so the
 // probability rides with the distance and no (Q, K) index gather follows.
-// Slots with no source, and every slot of a dead query, are (+inf, 0).
-// The TPU kernel folded the union into group minima and left the final
-// selection to approx_min_k at recall 0.8; this kernel selects exactly,
-// and the distance it returns is the true d2, not a payload-packed one.
+// Slots with no source, every slot of a dead query, and every slot of a
+// query whose distances are all NaN, are (+inf, 0). The TPU kernel folded
+// the union into group minima and left the final selection to
+// approx_min_k at recall 0.8; this kernel selects exactly, and the
+// distance it returns is the true d2, not a payload-packed one.
 //
-// What bounds it on the H100: the distance evaluations, sum over entries
-// of q_len * (len_f + len_c) pairs of 8 fp32 operations on the CUDA cores
-// (67 TFLOP/s). Bytes are small: 16 B per union row per entry, 12 B per
-// query, K * 8 B of output per query.
+// Design: the warp selection of select.cuh (select_block). One block per
+// (entry, kWarps * kRows queries); the union's rows are the columns, each
+// fetched through its region, and the key keeps the union index. The
+// payload is looked up from pay[row(u)] when the output is written, not
+// carried through the sort. Region lengths are read at run time: one
+// launch covers entries of any size.
 //
-// Design: one block per (entry, 128-query tile); one thread per query.
-// The union streams through shared memory in tiles of float4
-// (x, y, z, payload bits) read as warp-wide broadcasts. Each thread keeps
-// its current K-th distance in a register and rejects a candidate with
-// one compare; its sorted (d2, payload) list lives in shared memory,
-// column-major (slot j of thread t at j * 128 + t), so lanes never share
-// a bank whatever slot each touches. K = 64 lists do not fit in
-// registers (K1 in knn.cu already uses 54 for K = 32). Over a union of
-// n rows a query inserts about K * (1 + ln(n / K)) times, so the
-// threshold test rejects almost every candidate. Region lengths are read
-// at run time: one launch covers entries of any size.
-//
-// The distance is the difference form with the *_rn intrinsics, so nvcc
-// cannot contract it into FMAs: d2 equals the plain PyTorch version's
-// (fusion_kernels.py) bit for bit, and both select the same rows.
+// What bounds it on the H100: instruction issue (select.cuh): the
+// distance evaluations, sum over entries of q_len * (len_f + len_c) pairs
+// of 8 fp32 operations, and the keys that pass the filter (K = 64 admits
+// more and keeps two list entries a lane). Bytes are small: 12 B per
+// union row per entry, 12 B per query, K * 8 B of output per query. The
+// thread-per-query kernel this replaces kept K = 64 lists in 64 KB of
+// shared memory per 128 threads (3 blocks an SM) and shifted them
+// serially; the lists now live in registers, spread over a warp.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "select.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 512;
+using ptw_select::Key;
+using ptw_select::key_d2;
+using ptw_select::key_index;
+using ptw_select::kRows;
+using ptw_select::kWarps;
+using ptw_select::Select;
+using ptw_select::select_block;
 
-template <int K>
-constexpr size_t smem_bytes() {
-  return kTile * sizeof(float4) + (size_t)K * kThreads * (sizeof(float) +
-                                                           sizeof(int));
+__device__ __forceinline__ int union_row(int u, int off_f, int len_f,
+                                         int off_c) {
+  return u < len_f ? off_f + u : off_c + (u - len_f);
 }
 
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarps * 32)
 pair_select_kernel(const float* __restrict__ queries,
                    const int* __restrict__ q_len,
                    const float* __restrict__ src,
@@ -63,82 +65,39 @@ pair_select_kernel(const float* __restrict__ queries,
                    const int* __restrict__ regions,
                    float* __restrict__ out_d, int* __restrict__ out_p,
                    int n_q) {
-  extern __shared__ float4 smem[];
-  float4* tile = smem;
-  float* list_d = reinterpret_cast<float*>(smem + kTile);
-  int* list_p = reinterpret_cast<int*>(list_d + K * kThreads);
-
+  static_assert(Select<K>::kL * 32 == K, "K must be 32 or 64");
   const int e = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int q = blockIdx.x * kThreads + tid;
+  const int lane = threadIdx.x & 31;
+  const int q0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRows;
   const int len = min(q_len[e], n_q);
-  const bool active = q < len;
-
-#pragma unroll 8
-  for (int j = 0; j < K; ++j) {
-    list_d[j * kThreads + tid] = INFINITY;
-    list_p[j * kThreads + tid] = 0;
-  }
-
-  // Uniform over the block: a tile without live queries skips the scan.
-  if (blockIdx.x * kThreads < len) {
-    float qx = 0.f, qy = 0.f, qz = 0.f;
-    if (active) {
-      const float* p = queries + ((size_t)e * n_q + q) * 3;
-      qx = p[0];
-      qy = p[1];
-      qz = p[2];
+  const int off_f = regions[4 * e];
+  const int len_f = regions[4 * e + 1];
+  const int off_c = regions[4 * e + 2];
+  // uniform over the block: a block without live queries scans nothing
+  const int first = blockIdx.x * kWarps * kRows;
+  const int n_union = first < len ? len_f + regions[4 * e + 3] : 0;
+  Select<K> sel[kRows];
+  select_block(queries + (size_t)e * n_q * 3, q0, len, n_union,
+               [=](int u) {
+                 const float* p =
+                     src + (size_t)union_row(u, off_f, len_f, off_c) * 3;
+                 return make_float3(p[0], p[1], p[2]);
+               },
+               sel);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (q0 + r >= n_q) break;
+    float* od = out_d + ((size_t)e * n_q + q0 + r) * K;
+    int* op = out_p + ((size_t)e * n_q + q0 + r) * K;
+#pragma unroll
+    for (int s = 0; s < Select<K>::kL; ++s) {
+      const Key k = sel[r].lk[s];
+      const float d = key_d2(k);
+      int p = 0;
+      if (d < INFINITY) p = pay[union_row(key_index(k), off_f, len_f, off_c)];
+      od[s * 32 + lane] = d;
+      op[s * 32 + lane] = p;
     }
-    const int off_f = regions[4 * e];
-    const int len_f = regions[4 * e + 1];
-    const int off_c = regions[4 * e + 2];
-    const int len_c = regions[4 * e + 3];
-    const int n_union = len_f + len_c;
-    float thr = INFINITY;  // the K-th distance of this query's list
-    for (int base = 0; base < n_union; base += kTile) {
-      const int cnt = min(kTile, n_union - base);
-      __syncthreads();
-      for (int t = tid; t < cnt; t += kThreads) {
-        const int u = base + t;
-        const int row = u < len_f ? off_f + u : off_c + (u - len_f);
-        const float* p = src + (size_t)row * 3;
-        tile[t] = make_float4(p[0], p[1], p[2], __int_as_float(pay[row]));
-      }
-      __syncthreads();
-      if (!active) continue;
-      for (int t = 0; t < cnt; ++t) {
-        const float4 c = tile[t];
-        const float dx = __fsub_rn(qx, c.x);
-        const float dy = __fsub_rn(qy, c.y);
-        const float dz = __fsub_rn(qz, c.z);
-        const float d = __fadd_rn(
-            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-            __fmul_rn(dz, dz));
-        if (d < thr) {
-          // Entries strictly greater than d move down one slot; equal ones
-          // stay ahead (lower union index: rows arrive in index order).
-          int j = K - 1;
-          while (j > 0) {
-            const float prev = list_d[(j - 1) * kThreads + tid];
-            if (!(d < prev)) break;
-            list_d[j * kThreads + tid] = prev;
-            list_p[j * kThreads + tid] = list_p[(j - 1) * kThreads + tid];
-            --j;
-          }
-          list_d[j * kThreads + tid] = d;
-          list_p[j * kThreads + tid] = __float_as_int(c.w);
-          thr = list_d[(K - 1) * kThreads + tid];
-        }
-      }
-    }
-  }
-  if (q >= n_q) return;
-  float* od = out_d + ((size_t)e * n_q + q) * K;
-  int* op = out_p + ((size_t)e * n_q + q) * K;
-#pragma unroll 8
-  for (int j = 0; j < K; ++j) {
-    od[j] = list_d[j * kThreads + tid];
-    op[j] = list_p[j * kThreads + tid];
   }
 }
 
@@ -146,13 +105,9 @@ template <int K>
 int launch(const float* queries, const int* q_len, const float* src,
            const int* pay, const int* regions, float* out_d, int* out_p,
            int n_entries, int n_q, cudaStream_t stream) {
-  const size_t smem = smem_bytes<K>();
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_select_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n_q + kThreads - 1) / kThreads, n_entries);
-  pair_select_kernel<K><<<grid, kThreads, smem, stream>>>(
+  constexpr int per_block = kWarps * kRows;
+  dim3 grid((n_q + per_block - 1) / per_block, n_entries);
+  pair_select_kernel<K><<<grid, kWarps * 32, 0, stream>>>(
       queries, q_len, src, pay, regions, out_d, out_p, n_q);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,11 @@ and loaded with ``ctypes``. The sources expose plain C entry points
 (pointers as ``c_void_p``, the stream from
 ``torch.cuda.current_stream().cuda_stream``) that return the launch's
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
-The file name carries a hash of the source, so an edited kernel is never
+The file name carries a hash of the sources, so an edited kernel is never
 served from a stale library. ``build_all`` starts one nvcc per source at
-once.
+once. ``library(name, csrc)`` builds and loads the same entry points from
+another source directory (an earlier tree's kernels, for timing two
+versions in one process).
 
 Nothing here runs at import time: this module is imported on machines
 without nvcc, where only the plain PyTorch versions are used.
@@ -56,7 +58,7 @@ _SIGNATURES = {
     },
 }
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, str], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -70,9 +72,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def _target(name: str, csrc: Path | None = None) -> Path:
     digest = hashlib.sha256()
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in sorted(Path(csrc or CSRC).glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -88,21 +90,22 @@ def _load(name: str, path: Path) -> ctypes.CDLL:
     return lib
 
 
-def build_all(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
-    """Compile every missing library, one nvcc process per source, all
-    started together; returns name -> library path. Raises with nvcc's
-    output if any build fails."""
+def build_all(names=SOURCES, verbose: bool = False,
+              csrc: Path | None = None) -> dict[str, Path]:
+    """Compile every missing library from ``csrc`` (default ``CSRC``),
+    one nvcc process per source, all started together; returns name ->
+    library path. Raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     paths = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, csrc)
         paths[name] = out
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               "-o", str(tmp), str(Path(csrc or CSRC) / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
@@ -120,12 +123,14 @@ def build_all(names=SOURCES, verbose: bool = False) -> dict[str, Path]:
     return paths
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+def library(name: str, csrc: Path | None = None) -> ctypes.CDLL:
+    """The loaded library ``name`` built from ``csrc`` (default
+    ``CSRC``), built first if needed."""
+    key = (name, str(csrc))
     with _LOCK:
-        if name not in _LIBS:
-            _LIBS[name] = _load(name, build_all((name,))[name])
-        return _LIBS[name]
+        if key not in _LIBS:
+            _LIBS[key] = _load(name, build_all((name,), csrc=csrc)[name])
+        return _LIBS[key]
 
 
 def check(code: int, what: str) -> None:

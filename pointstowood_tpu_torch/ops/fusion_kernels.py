@@ -9,13 +9,16 @@ its first ``q_len[e]`` queries it returns the ``k`` nearest rows of the
 entry's union (fine region ``[off_f, off_f + len_f)`` then coarse region
 ``[off_c, off_c + len_c)`` of the flat source arrays) as (d2, payload):
 ascending true squared distances, ties to the lower union index, and the
-source's 10-bit payload. Slots without a source and dead queries hold
-(+inf, 0). The selection is exact where the JAX one is a group fold plus
-``approx_min_k`` at recall 0.8: the same function, not the same blocks.
+source's 10-bit payload. Slots without a source, dead queries and
+queries whose distances are all NaN hold (+inf, 0). The selection is
+exact where the JAX one is a group fold plus ``approx_min_k`` at recall
+0.8: the same function, not the same blocks.
 
-The wrapper runs the plain version only when its inputs lie on the CPU;
-on a CUDA tensor it launches the kernel or raises. It counts its kernel
-launches in ``pair_select.launches``.
+The kernel runs the warp selection of csrc/select.cuh (shared with
+``knn_topk``) and equals ``pair_select_plain`` bit for bit. The wrapper
+runs the plain version only when its inputs lie on the CPU; on a CUDA
+tensor it launches the kernel or raises. It counts its kernel launches in
+``pair_select.launches``.
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ def quantize_payload(probs: torch.Tensor) -> torch.Tensor:
 
 def pair_select_plain(queries, q_len, src_xyz, src_pay, regions, k: int):
     """Plain version: per entry, the difference-form d2 of its live
-    queries against its union, a stable ascending sort, and a payload
-    gather. Same contract as ``pair_select``."""
+    queries against its union (a NaN d2 counts as +inf, as in the kernel),
+    a stable ascending sort, and a payload gather; non-finite slots hold
+    (+inf, 0). Same contract as ``pair_select``."""
     n_e, n_q, _ = queries.shape
     dev = queries.device
     out_d = torch.full((n_e, n_q, k), math.inf, device=dev)
@@ -61,9 +65,12 @@ def pair_select_plain(queries, q_len, src_xyz, src_pay, regions, k: int):
         if kk == 0:
             continue
         d = pair_d2(queries[e:e + 1, :ql], src_xyz[rows][None])[0]
+        d = torch.where(torch.isnan(d), math.inf, d)
         vals, order = torch.sort(d, dim=1, stable=True)
-        out_d[e, :ql, :kk] = vals[:, :kk]
-        out_p[e, :ql, :kk] = src_pay[rows][order[:, :kk]]
+        vals, order = vals[:, :kk], order[:, :kk]
+        out_d[e, :ql, :kk] = vals
+        out_p[e, :ql, :kk] = torch.where(torch.isfinite(vals),
+                                         src_pay[rows][order], 0)
     return out_d, out_p
 
 

@@ -11,7 +11,10 @@ Three wrappers, each beside its plain PyTorch version:
 
 The selections return the exact top-k by squared distance, ascending, ties
 to the lower column index, with the TRUE d2 (+inf for masked columns and
-unfilled slots; idx 0 there). A wrapper runs the plain version only when
+unfilled slots; idx 0 there; a NaN distance is never selected).
+``knn_topk`` runs the warp selection of csrc/select.cuh, shared with
+``pair_select``; its result equals ``select_plain`` bit for bit. A wrapper
+runs the plain version only when
 its inputs lie on the CPU; on a CUDA tensor it launches the kernel or
 raises. Each wrapper counts its kernel launches in its ``launches``
 attribute.
@@ -148,7 +151,9 @@ def select_plain(rows: torch.Tensor, cols: torch.Tensor,
     """Plain version of both kernels: exact top-k of the masked squared
     distances per row (stable sort: ties to the lower column index).
     Returns (d2 (B, R, k) f32, idx (B, R, k) int32); slots beyond the
-    valid columns hold (+inf, 0)."""
+    valid columns hold (+inf, 0). A NaN distance counts as +inf, as in the
+    kernels, which never select one: a row of NaN distances is all
+    (+inf, 0)."""
     b, n_rows, _ = rows.shape
     n_cols = cols.shape[1]
     kk = min(k, n_cols)
@@ -157,7 +162,7 @@ def select_plain(rows: torch.Tensor, cols: torch.Tensor,
     step = max(1, _CHUNK_ELEMS // max(1, b * n_cols))
     for lo in range(0, n_rows, step):
         d = pair_d2(rows[:, lo:lo + step], cols)
-        d = torch.where(col_mask[:, None, :], d, math.inf)
+        d = torch.where(col_mask[:, None, :] & ~torch.isnan(d), d, math.inf)
         vals, order = torch.sort(d, dim=-1, stable=True)
         vals, order = vals[..., :kk], order[..., :kk]
         out_d[:, lo:lo + step, :kk] = vals
@@ -200,7 +205,7 @@ def group_min_plain(rows: torch.Tensor, cols: torch.Tensor,
 
 # --- kernel wrappers --------------------------------------------------------
 
-_TOPK_INSTANCES = (8, 16, 32)
+_TOPK_INSTANCES = (2, 8, 16, 32)
 
 
 def _check_inputs(rows, cols, col_mask, name):
@@ -243,7 +248,7 @@ def knn_topk(rows: torch.Tensor, cols: torch.Tensor,
     """Exact top-k nearest valid columns per row: rows (B, R, 3) f32,
     cols (B, C, 3) f32, col_mask (B, C) bool -> (d2 (B, R, k) f32,
     idx (B, R, k) int32). CUDA: the ``ptw_knn_topk`` kernel for k <= 32
-    (instantiated at K = 8/16/32, the first k slots kept)."""
+    (instantiated at K = 2/8/16/32, the first k slots kept)."""
     _check_inputs(rows, cols, col_mask, "knn_topk")
     if rows.device.type == "cpu":
         return select_plain(rows, cols, col_mask, k)
