@@ -4,14 +4,17 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--compare-with DIR]
 
-With ``--compare-with DIR`` (an earlier tree's ``knn.cu`` and
-``fusion.cu``, with any header they include), ``knn_topk`` at SA1-SA3,
-``knn_top2`` at its three shapes and ``pair_select`` over the plot's
-entries are also timed with that tree's kernels, built by the port's own
-build (``build.library(name, DIR)``) and launched through the port's
-wrappers on the same inputs, in turns (earlier, current, current,
-earlier): each row gains ``compared_ms`` and ``turns_ms``. A kernel PR
-uses it to time its new kernel against its parent's in one call.
+With ``--compare-with DIR`` (an earlier tree's ``knn.cu``,
+``fusion.cu`` and ``group_min.cu``, with any header they include),
+``knn_topk`` at SA1-SA3 (k = 32), ``knn_top2`` at its three shapes,
+``pair_select`` over the plot's entries and ``group_min`` at its three
+shapes are also timed with that tree's kernels, built by the port's own
+build (``build.build_all``) and loaded by ``earlier_library``, launched
+through the port's wrappers on the same inputs (an earlier ``knn_top2``
+entry without a lane count through ``earlier_top2``), in turns (earlier, current,
+current, earlier): each row gains ``compared_ms`` and ``turns_ms``. A
+kernel PR uses it to time its new kernel against its parent's in one
+call.
 
 Phases, each printing one JSON line (any failed check raises, so the script
 exits non-zero and prints no final line):
@@ -19,22 +22,32 @@ exits non-zero and prints no final line):
 1. device   -- card name and power limit (nvidia-smi), torch/CUDA versions;
                TF32 is switched off for matrix products and convolutions.
 2. build    -- nvcc builds every kernel of ``pointstowood_tpu_torch/csrc``
-               for sm_90a (one nvcc per source, all started together).
+               for sm_90a (one nvcc per source, all started together);
+               registers and spills (``-Xptxas -v``), and the SASS
+               instruction count by opcode of the inner loops of
+               ``knn_topk_kernel``, ``knn_top2_kernel``,
+               ``pair_select_kernel`` and ``group_min_kernel``
+               (``cuobjdump -sass``; the dump goes to ``build/sass/``).
 3. kernel   -- each forward kernel at the shapes the canonical eval forward
                (B=8 tiles x 16384 points, C=32, bf16, fast kNN) gives it,
                held against its plain PyTorch version on the same CUDA
                inputs (the selections ``knn_topk``/``knn_top2`` bit for
-               bit), with its time, the plain version's time, a one-call
-               PyTorch yardstick where one exists and its bound. At the
-               top-2 shapes (phase ``top2_route``) ``knn_top2`` and
-               ``knn_topk``'s warp selection at K = 2, bit for bit against
-               the plain version and timed in turns.
+               bit; ``knn_topk`` also at k = 64 and 48, Net(k=64)'s), with
+               its time (``ms``: calls queued back to back, ``cuda_ms``;
+               ``bracketed_ms``: each call bracketed alone), the plain
+               version's time, a one-call PyTorch yardstick where one
+               exists, and its bound. At the top-2 shapes
+               (phase ``top2_route``) ``knn_top2`` and ``knn_topk``'s warp
+               selection at K = 2, bit for bit against the plain version
+               and timed in turns; (phase ``top2_lanes``) ``knn_top2`` with
+               every lane count, bit for bit and timed.
                Then (phase ``adversarial``) the selections on inputs that
                break a wrong one, each bit for bit against its plain
                version: duplicated columns, descending distances, fewer
                columns than k, a ragged column count with a NaN row and
                masks, a fully masked batch, 1 and 33 rows, ``knn_top2``
-               and ``knn_topk`` at k = 2/8/16/32;
+               with every lane count and ``knn_topk`` at k = 2/8/16/32/
+               48/64;
                ``pair_select`` entries with empty fine or coarse regions,
                a union shorter than k, q_len 0 and Q, a NaN query.
 4. forward  -- ``run_inference`` over a synthetic plot (8 full 16384-point
@@ -44,6 +57,10 @@ exits non-zero and prints no final line):
                run. Then the median forward time of one B=8 x 16384 batch,
                and (phase ``profile``) that forward's device time by
                kernel name under torch.profiler, with its idle share.
+               Then (phase ``forward_k64``) the same batch through a
+               ``Net(k=64)`` (every SA kNN on ``knn_topk``'s K = 64
+               instance): finite probabilities, three ``knn_topk``
+               launches, its forward time.
 5. crosscheck -- one full tile through the port on the CPU (plain versions)
                and on the card (kernels): labels and probabilities agree.
 6. predict  -- the serving path: a synthetic ~1.2 M-point plot of trees
@@ -74,7 +91,8 @@ exits non-zero and prints no final line):
                index-path launch of cap 32768 over windows masked past
                each tile's length; held bit for bit (minima and slots)
                against ``group_min_plain``, with +inf minima where every
-               member is masked; time, bound, plain version, the
+               member is masked, and again with NaN, +inf and -inf rows;
+               times (as in 3), bound, plain version, the
                ``cdist().square().amin`` yardstick, and the whole
                two-stage kNN beside ``knn_topk`` at the same shape.
 10. crosscheck_large -- one full 32768-point tile of that plot (SA1 on
@@ -87,7 +105,9 @@ exits non-zero and prints no final line):
                16384 points) and fusion the index path; group_min's
                launch counter must grow in the model phase and again in
                fusion. Tiles and batches per capacity bucket, per-phase
-               walls, points per second, peak memory.
+               walls, points per second, peak memory, and the index
+               fusion's seconds by part (group_min, topk, member_index,
+               knn_topk, readback, host search, remainder).
 12. index_fusion_crosscheck -- ``fusion_indices`` on that tiling against
                exact host fusion (trunk field as probabilities) on a seeded
                sample of 50 000 rows.
@@ -116,7 +136,11 @@ exits non-zero and prints no final line):
                points); the loss is finite and falls from epoch 1 to 2,
                and ``cli.predict.main`` serves the trained ``.pth`` on the
                predict phase's plot, scored by balanced accuracy.
-17. the ``{"kernels": [...]}`` line (every CUDA kernel's rows), then the
+17. floors   -- each selection's and ``group_min``'s issue-rate floor:
+               its distance pairs times the SASS hot path's instructions
+               a pair (phase 2) over the SMs' issue rate; arithmetic, kept
+               out of the kernels line.
+18. the ``{"kernels": [...]}`` line (every CUDA kernel's rows), then the
    card's nvidia-smi line, then the final ``{"ok": true, "device":
    {...}}`` line.
 
@@ -129,8 +153,10 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -145,9 +171,23 @@ SEED = 141190
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM3 bandwidth. The bound of a kernel is the larger of its
-# operations over the first and its bytes over the second.
+# operations over the op rate and its bytes over the second.
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# One operation a lane a cycle: 132 SMs x 128 fp32 lanes x the 1980 MHz
+# maximum SM clock. The data sheet's 67 TFLOP/s counts an FMA as two
+# operations; the selections and group_min use no FMA (their d2 must
+# equal the plain version's bit for bit), so their operations run at half
+# of it. It is also the rate at which the SMs issue thread instructions,
+# which gives their issue-rate floor: instructions a pair (from the
+# SASS of the kernel's inner loop) x pairs over this rate (phase
+# ``floors``).
+LANE_OPS_PER_S = 132 * 128 * 1.98e9
+# The kernels whose inner loops the build phase reads in the SASS, by
+# library: the FMA-free selections and group_min.
+SASS_KERNELS = {"knn": ("knn_topk_kernel", "knn_top2_kernel"),
+                "fusion": ("pair_select_kernel",),
+                "group_min": ("group_min_kernel",)}
 
 RECORDS: list[dict] = []
 
@@ -167,6 +207,128 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def demangle(names: list[str]) -> list[str]:
+    """Kernel names as ``cu++filt`` (which ships with nvcc) gives them, up
+    to the argument list: "void <unnamed>::knn_topk_kernel<(int)32>(const
+    float *, ...)" -> "knn_topk_kernel<32>"."""
+    import re
+
+    from pointstowood_tpu_torch.ops import build
+
+    filt = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
+    if not names or not os.path.exists(filt):
+        return names
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return [re.sub(r"<unnamed>::|\((?:unsigned )?int\)", "", n)
+            .split("(")[0].removeprefix("void ") for n in out.splitlines()]
+
+
+def sass_inner_loops(lib_path, prefixes, dump_dir) -> dict:
+    """The SASS (``cuobjdump -sass``, which ships with the toolkit) of the
+    kernels whose names start with one of ``prefixes``, written to
+    ``dump_dir``, and for each such kernel its innermost loops that
+    evaluate distances: the instructions from a backward branch's target
+    to the branch, holding FMULs, no EXIT and no shorter such loop (a
+    branch back from the stubs that nvcc puts after the kernel's EXIT for
+    a diverged warp, which a ``BRA.DIV`` jumps to, makes no loop; on the
+    hot path a ``BRA.DIV`` falls through, as it does for a converged
+    warp). Per loop: its
+    instructions, and those of its hot path, the shortest path from its
+    head to its branch back (forward branches taken or not: it skips what
+    a loop runs only now and then, such as an insertion, or a variant for
+    rare rows), with their count by opcode, their distance pairs (FMUL /
+    3: dx, dy and dz are squared once a pair) and instructions a pair.
+    ``per_pair`` of the kernel is its leanest loop's hot path's."""
+    import re
+    from collections import Counter
+
+    from pointstowood_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    os.makedirs(dump_dir, exist_ok=True)
+    with open(os.path.join(dump_dir, Path(lib_path).stem + ".sass"),
+              "w") as f:
+        f.write(text)
+    funcs: dict = {}
+    cur = None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            cur = funcs.setdefault(head.group(1), [])
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins and cur is not None:
+            text_ins = ins.group(2).strip()
+            body = re.sub(r"^@!?U?P\w+\s+", "", text_ins)
+            target = re.search(r"0x([0-9a-f]+)", body)
+            cur.append({"addr": int(ins.group(1), 16),
+                        "op": body.split()[0],
+                        "conditional": (body != text_ins
+                                        or body.startswith("BRA.DIV")),
+                        "target": (int(target.group(1), 16)
+                                   if body.startswith("BRA") and target
+                                   else None)})
+
+    def hot_path(span):
+        # shortest path over the loop's forward edges: fall through
+        # (unless an unconditional branch) and forward branches inside
+        best = [None] * len(span)
+        prev = [None] * len(span)
+        best[0] = 1
+        where = {ins["addr"]: i for i, ins in enumerate(span)}
+        for i, ins in enumerate(span[:-1]):
+            if best[i] is None:
+                continue
+            nxt = []
+            if not (ins["op"].startswith("BRA") and not ins["conditional"]):
+                nxt.append(i + 1)
+            if ins["target"] is not None and ins["target"] > ins["addr"] \
+                    and ins["target"] in where:
+                nxt.append(where[ins["target"]])
+            for j in nxt:
+                if best[j] is None or best[i] + 1 < best[j]:
+                    best[j], prev[j] = best[i] + 1, i
+        path, i = [], len(span) - 1
+        while i is not None:
+            path.append(span[i]["op"])
+            i = prev[i]
+        return path
+
+    out = {}
+    for mangled, name in zip(funcs, demangle(list(funcs))):
+        if not name.startswith(tuple(prefixes)):
+            continue
+        code = funcs[mangled]
+        loops = []
+        for end, ins in enumerate(code):
+            if ins["target"] is None or ins["target"] > ins["addr"]:
+                continue
+            span = [c for c in code[:end + 1] if c["addr"] >= ins["target"]]
+            ops = {c["op"].split(".")[0] for c in span}
+            if "FMUL" in ops and "EXIT" not in ops:
+                loops.append((span[0]["addr"], ins["addr"], span))
+        inner = [lp for lp in loops
+                 if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
+                            for o in loops)]
+        rec = []
+        for start, end, span in inner:
+            path = hot_path(span)
+            pairs = sum(o.split(".")[0] == "FMUL" for o in path) / 3
+            rec.append({"range": [hex(start), hex(end)],
+                        "instructions": len(span),
+                        "hot_path_instructions": len(path),
+                        "pairs": pairs,
+                        "per_pair": len(path) / pairs if pairs else None,
+                        "opcodes": dict(Counter(path).most_common())})
+        out[name] = {"loops": rec,
+                     "per_pair": min((r["per_pair"] for r in rec
+                                      if r["per_pair"]), default=None)}
+    return out
+
+
 def ptxas_usage(log: str) -> dict:
     """Registers, spill bytes and shared memory of every kernel entry in
     nvcc's ``-Xptxas -v`` output, by kernel name (demangled by
@@ -176,17 +338,8 @@ def ptxas_usage(log: str) -> dict:
     from pointstowood_tpu_torch.ops import build
 
     blocks = log.split("Compiling entry function")[1:]
-    names = [re.search(r"'([^']*)'", block).group(1) for block in blocks]
-    filt = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
-    if names and os.path.exists(filt):
-        out = subprocess.run([filt], input="\n".join(names),
-                             capture_output=True, text=True, timeout=60,
-                             check=True).stdout
-        # "void <unnamed>::knn_topk_kernel<(int)32>(const float *, ...)"
-        # -> "knn_topk_kernel<32>"
-        names = [re.sub(r"<unnamed>::|\((?:unsigned )?int\)", "", n)
-                 .split("(")[0].removeprefix("void ")
-                 for n in out.splitlines()]
+    names = demangle([re.search(r"'([^']*)'", block).group(1)
+                      for block in blocks])
     usage = {}
     for name, block in zip(names, blocks):
         regs = re.search(r"Used (\d+) registers", block)
@@ -201,7 +354,41 @@ def ptxas_usage(log: str) -> dict:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    """Device milliseconds of one call of ``fn``: ``reps`` calls queued
+    behind a sleep kernel long enough for the host to enqueue all of them
+    (the wrappers' Python and the launches), between two CUDA events, over
+    ``reps``. So the card runs the calls back to back and the time is the
+    device's, not the host's: a call bracketed alone also holds the time
+    between its first event and its launch, tens of microseconds, which
+    at the small shapes is most of it. A call that synchronises makes the
+    host wait for the sleep and counts its own host time too."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # spin cycles at up to the 1980 MHz maximum SM clock
+    torch.cuda._sleep(int(min(0.5, 2 * reps * enqueue_s + 1e-3) * 1.98e9))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bracketed_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` calls, each bracketed
+    alone by two CUDA events: device time plus the host time between the
+    first event and the launch. Kernel rows carry it beside ``cuda_ms``'s
+    ``ms`` (as ``bracketed_ms``), so that a time taken with either timer
+    can be set against this run's."""
     import torch
 
     for _ in range(warmup):
@@ -219,8 +406,9 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = ops / FP32_FLOPS * 1e3
+def bound(ops: float, nbytes: float,
+          op_rate: float = FP32_FLOPS) -> tuple[float, str]:
+    t_ops = ops / op_rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -232,35 +420,88 @@ def in_turns(time_a, time_b) -> tuple[float, float, list]:
     return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
 
 
+# C signatures of the entry points that the compare path launches in an
+# earlier tree's libraries: this tree's, and the thread-per-row
+# ``ptw_knn_top2`` (no lane count) of a knn.cu without the split top-2.
+_EARLIER_LIBS: dict = {}
+_EARLIER_TOP2 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def earlier_library(name: str, src_dir: str):
+    """The library ``name`` built from ``src_dir`` (an earlier tree's
+    csrc) by ``build.build_all``, loaded with ctypes, with only the entry
+    points that the compare path launches declared: ``ptw_knn_topk`` and
+    the top-2 (``ptw_knn_top2_split`` or, in its place, ``ptw_knn_top2``),
+    ``ptw_pair_select``, ``ptw_group_min``."""
+    from pointstowood_tpu_torch.ops import build
+
+    key = (name, src_dir)
+    if key not in _EARLIER_LIBS:
+        path = build.build_all((name,), csrc=Path(src_dir))[name]
+        lib = ctypes.CDLL(str(path))
+        entries = {"knn": ["ptw_knn_topk"], "fusion": ["ptw_pair_select"],
+                   "group_min": ["ptw_group_min"]}[name]
+        signatures = dict(build._SIGNATURES[name])
+        if name == "knn" and not hasattr(lib, "ptw_knn_top2_split"):
+            entries.append("ptw_knn_top2")
+            signatures["ptw_knn_top2"] = _EARLIER_TOP2
+        elif name == "knn":
+            entries.append("ptw_knn_top2_split")
+        for fn in entries:
+            f = getattr(lib, fn)
+            f.argtypes = signatures[fn]
+            f.restype = ctypes.c_int
+        _EARLIER_LIBS[key] = lib
+    return _EARLIER_LIBS[key]
+
+
 @contextlib.contextmanager
 def kernels_from(src_dir: str):
-    """Within it, the port's wrappers launch the kernels that
-    ``build.library`` builds from ``src_dir`` (an earlier tree's csrc)."""
+    """Within it, the port's wrappers launch the kernels of
+    ``earlier_library(name, src_dir)``."""
     from pointstowood_tpu_torch.ops import build
 
     own = build.library
-    build.library = functools.partial(own, csrc=Path(src_dir))
+    build.library = lambda name, csrc=None: earlier_library(name, src_dir)
     try:
         yield
     finally:
         build.library = own
 
 
-def timed(call, compare_with=None, **timing) -> tuple:
+def timed(call, compare_with=None, earlier_call=None, **timing) -> tuple:
     """(ms, earlier ms, turns) of ``call``: with ``compare_with`` (a
     source directory) timed in turns with that directory's kernels
-    (earlier, current, current, earlier), else alone (earlier ms and
+    (earlier, current, current, earlier), launched by ``earlier_call``
+    where given (an earlier entry point that the wrapper no longer
+    calls), else by ``call`` itself; without it alone (earlier ms and
     turns None)."""
     if compare_with is None:
         return cuda_ms(call, **timing), None, None
 
     def earlier():
+        if earlier_call is not None:
+            return cuda_ms(earlier_call, **timing)
         with kernels_from(compare_with):
             return cuda_ms(call, **timing)
 
     compared_ms, ms, turns = in_turns(
         earlier, lambda: cuda_ms(call, **timing))
     return ms, compared_ms, turns
+
+
+def earlier_top2(src_dir: str):
+    """``knn_top2`` with the kernel of an earlier tree whose knn.cu has no
+    ``ptw_knn_top2_split``: its thread-per-row ``ptw_knn_top2`` (no lane
+    argument), launched through the port's launch helper; None where the
+    earlier tree has the split kernel (the wrapper then launches it)."""
+    from pointstowood_tpu_torch.ops import knn_kernels
+
+    lib = earlier_library("knn", src_dir)
+    if hasattr(lib, "ptw_knn_top2_split"):
+        return None
+    return lambda r, c, m: knn_kernels._launch_select(
+        knn_kernels.knn_top2, lib.ptw_knn_top2, r, c, m, 2)
 
 
 # ---------------------------------------------------------------- data
@@ -517,9 +758,10 @@ def adversarial_pair_inputs(seed):
 
 def adversarial_phase(dev):
     """Phase ``adversarial``: every case of ``adversarial_knn_inputs``
-    through ``knn_topk`` at k = 2, 8, 16 and 32 and ``knn_top2``, and
-    ``adversarial_pair_inputs`` through ``pair_select`` at k = 32 and 64,
-    each held bit for bit against its plain version."""
+    through ``knn_top2`` (with every lane count it has) and ``knn_topk``
+    at k = 2, 8, 16, 32, 48 and 64, and ``adversarial_pair_inputs`` through
+    ``pair_select`` at k = 32 and 64, each held bit for bit against its
+    plain version."""
     import torch
 
     from pointstowood_tpu_torch.ops.fusion_kernels import (
@@ -527,6 +769,7 @@ def adversarial_phase(dev):
         pair_select_plain,
     )
     from pointstowood_tpu_torch.ops.knn_kernels import (
+        TOP2_LANES,
         knn_top2,
         knn_topk,
         select_plain,
@@ -535,12 +778,16 @@ def adversarial_phase(dev):
     checked = []
     for name, rows, cols, mask in adversarial_knn_inputs(SEED):
         r, c, m = (torch.from_numpy(a).to(dev) for a in (rows, cols, mask))
-        for fn, k in ((knn_top2, 2), (knn_topk, 2), (knn_topk, 8),
-                      (knn_topk, 16), (knn_topk, 32)):
-            d_k, i_k = fn(r, c, m) if fn is knn_top2 else fn(r, c, m, k)
+        calls = [(f"knn_top2 k=2 lanes={lanes}",
+                  functools.partial(knn_top2, r, c, m, lanes), 2)
+                 for lanes in TOP2_LANES]
+        calls += [(f"knn_topk k={k}", functools.partial(knn_topk, r, c, m, k),
+                   k) for k in (2, 8, 16, 32, 48, 64)]
+        for what, call, k in calls:
+            d_k, i_k = call()
             torch.cuda.synchronize()
             d_p, i_p = select_plain(r, c, m, k)
-            label = f"{name}, {fn.__name__} k={k}"
+            label = f"{name}, {what}"
             check_exact(f"adversarial {label}", d_k, i_k, d_p, i_p)
             checked.append(label)
     entries = [torch.from_numpy(a).to(dev)
@@ -559,6 +806,37 @@ def adversarial_phase(dev):
     return emit("adversarial", cases=len(checked), checked=checked,
                 tolerance="bit for bit (torch.equal on d2 and index or "
                           "payload)")
+
+
+def top2_lanes_phase(lv, selected):
+    """Phase ``top2_lanes``: ``knn_top2`` with every lane count it has at
+    its three canonical shapes, each held bit for bit against the checked
+    result of phase ``kernel``, and timed: the evidence for
+    ``top2_lanes``'s rule."""
+    import torch
+
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        TOP2_LANES,
+        knn_top2,
+        top2_lanes,
+    )
+
+    for name, ri, ci in (("knn_top2 SA1 transpose", 0, 1),
+                         ("knn_top2 SA2 transpose", 1, 2),
+                         ("knn_top2 FP3", 2, 3)):
+        r, (c, cm) = lv[ri][0], lv[ci]
+        i_ref, d_ref = selected[name]
+        ms = {}
+        for lanes in TOP2_LANES:
+            call = functools.partial(knn_top2, r, c, cm, lanes)
+            d_k, i_k = call()
+            torch.cuda.synchronize()
+            check_exact(f"{name} lanes={lanes}", d_k, i_k, d_ref, i_ref)
+            ms[lanes] = cuda_ms(call)
+        emit("top2_lanes", name=name, shape=[r.shape[0], r.shape[1],
+                                             c.shape[1], 2],
+             ms_by_lanes=ms, chosen=top2_lanes(r.shape[0], r.shape[1]),
+             fastest=min(ms, key=ms.get))
 
 
 def serving_phases(net, dev, smi, rows, wrappers, compare_with=None,
@@ -690,7 +968,8 @@ def serving_phases(net, dev, smi, rows, wrappers, compare_with=None,
         lib_ms = cuda_ms(library_all, reps=3, warmup=1)
         bms, by = bound(
             8.0 * pairs,
-            float((ql * 12 + ul * 16).sum()) + float(ql.sum()) * k_out * 8)
+            float((ql * 12 + ul * 16).sum()) + float(ql.sum()) * k_out * 8,
+            LANE_OPS_PER_S)
         rows.append({
             "name": name, "check": "ok", "route": "cuda",
             "source": "pointstowood_tpu_torch/csrc/fusion.cu",
@@ -706,6 +985,9 @@ def serving_phases(net, dev, smi, rows, wrappers, compare_with=None,
             "on_default_path": k_out == 64,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by,
+            "bracketed_ms": bracketed_ms(
+                lambda: select_all(pair_select, entries, k_out), reps=5,
+                warmup=1),
             "compared_ms": compared_ms, "turns_ms": turns,
             "library_ms": lib_ms,
             "library_call": "per entry: torch.topk(torch.cdist(q, union), "
@@ -778,7 +1060,7 @@ def large_tile_plot(seed):
                            batcher=batcher, order=batcher.tile_order())
 
 
-def group_min_rows(net, dev, rows, large):
+def group_min_rows(net, dev, rows, large, compare_with=None):
     """Phase ``kernel`` (group_min): the two-stage kNN's first kernel on
     the inputs the large-tile plot's main path gives it: SA1 of its B=8 x
     32768 batch (16384 centres; two blocks of 16384) and of its B=8 x
@@ -788,9 +1070,12 @@ def group_min_rows(net, dev, rows, large):
     tiles of that cap, 8192 of each tile's rows as queries, against their
     ``source_windows``: masked past each tile's length). Each is held bit
     for bit against ``group_min_plain`` (minima and slots) and must hold
-    +inf minima (groups with every member masked); its time, bound, plain
-    time, the one-expression yardstick, and the whole two-stage kNN beside
-    ``knn_topk`` at the same shape."""
+    +inf minima (groups with every member masked), also with three rows
+    made non-finite (a NaN, a +inf and a -inf coordinate: the kernel's
+    masked loop); its time (in turns with ``compare_with``'s kernel where
+    given, and bracketed alone), bound, plain time, the one-expression
+    yardstick, and the whole two-stage kNN beside ``knn_topk`` at the same
+    shape."""
     import torch
 
     from pointstowood_tpu_torch.ops.knn import knn_masked
@@ -837,7 +1122,23 @@ def group_min_rows(net, dev, rows, large):
             raise AssertionError(f"{name}: no group with every member "
                                  f"masked")
         del m_k, s_k, m_p, s_p
-        ms = cuda_ms(lambda: group_min(r, c, m, g))
+        bad = r.clone()
+        for i, (row, axis, value) in enumerate(((1, 0, math.nan),
+                                                (2, 1, math.inf),
+                                                (3, 2, -math.inf))):
+            bad[i, 64 * row + 5, axis] = value
+        m_k, s_k = group_min(bad, c, m, g)
+        torch.cuda.synchronize()
+        m_p, s_p = group_min_plain(bad, c, m, g)
+        # NaN minima: compare the bits
+        if not (torch.equal(m_k.view(torch.int32), m_p.view(torch.int32))
+                and torch.equal(s_k, s_p)
+                and bool(torch.isnan(m_k[0, 69]).any())):
+            raise AssertionError(f"{name}: differs from the plain version "
+                                 f"on non-finite rows")
+        del m_k, s_k, m_p, s_p, bad
+        ms, compared_ms, turns = timed(lambda: group_min(r, c, m, g),
+                                       compare_with)
         plain_ms = cuda_ms(lambda: group_min_plain(r, c, m, g), reps=1,
                            warmup=0)
         lib_ms = cuda_ms(lambda: torch.cdist(r, c).square().view(
@@ -846,8 +1147,10 @@ def group_min_rows(net, dev, rows, large):
         two_stage_ms = cuda_ms(lambda: knn_masked(r, c, 32, source_mask=m,
                                                   method="fast"), reps=5)
         topk_ms = cuda_ms(lambda: knn_topk(r, c, m, 32), reps=5)
-        bms, by = bound(8.0 * b * nq * nc,
-                        12 * b * (nq + nc) + b * nc + 5 * b * nq * (nc // g))
+        pairs = float(b * nq * nc)
+        bms, by = bound(8.0 * pairs,
+                        12 * b * (nq + nc) + b * nc + 5 * b * nq * (nc // g),
+                        LANE_OPS_PER_S)
         rows.append({
             "name": name, "check": "ok", "route": "cuda",
             "source": "pointstowood_tpu_torch/csrc/group_min.cu",
@@ -855,9 +1158,13 @@ def group_min_rows(net, dev, rows, large):
             "wrapper": "group_min", "shape": [b, nq, nc, g],
             "n_block": nb, "masked_sources": int((~m).sum()),
             "inf_minima": n_inf, "max_abs_err": 0.0,
-            "tolerance": "bit for bit (minima and slots)",
+            "tolerance": "bit for bit (minima and slots; also with NaN, "
+                         "+inf and -inf row coordinates)",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms,
+            "bound_by": by, "distance_pairs": pairs,
+            "bracketed_ms": bracketed_ms(lambda: group_min(r, c, m, g)),
+            "compared_ms": compared_ms, "turns_ms": turns,
+            "library_ms": lib_ms,
             "library_call": "torch.cdist(q, s).square().view(B, Q, "
                             "n_blocks, g, n_block / g).amin(3)",
             "two_stage_knn_ms": two_stage_ms, "knn_topk_ms": topk_ms,
@@ -906,15 +1213,66 @@ def crosscheck_large(net, dev, large, wrappers):
     return launches
 
 
+@contextlib.contextmanager
+def index_fusion_clock(parts: dict):
+    """Within it, the index fusion path's parts add their host-clock
+    seconds to ``parts``, each timed between two synchronisations of the
+    card: ``group_min``; ``topk`` (the ``torch.topk`` over its minima and
+    the slot gather, from the end of ``group_min`` to the start of
+    ``member_index``); ``member_index``; ``knn_topk`` (the windows of up to
+    16384 points); ``host_search`` (the rows no tile covers). The route is
+    unchanged; only the synchronisations are added."""
+    import torch
+
+    from pointstowood_tpu_torch.ops import knn as knn_mod
+    from pointstowood_tpu_torch.predict import device_fusion
+
+    last_min = [None]  # when the last group_min ended
+
+    def clocked(module, name, part):
+        fn = getattr(module, name)
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if part == "member_index" and last_min[0] is not None:
+                parts["topk"] = parts.get("topk", 0.0) + t0 - last_min[0]
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            parts[part] = parts.get(part, 0.0) + t1 - t0
+            last_min[0] = t1 if part == "group_min" else None
+            return out
+        return fn, run
+
+    targets = [(knn_mod, "group_min", "group_min"),
+               (knn_mod, "member_index", "member_index"),
+               (knn_mod, "knn_topk", "knn_topk"),
+               (device_fusion, "knn_indices", "host_search")]
+    saved = []
+    try:
+        for module, name, part in targets:
+            fn, run = clocked(module, name, part)
+            saved.append((module, name, fn))
+            setattr(module, name, run)
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
 def predict_large_phases(dev, smi, rows, wrappers, large, model_path):
     """Phases ``predict_large`` and ``index_fusion_crosscheck``: the
     predict CLI on the large-tile plot at one 4 m grid, max_pts 32768,
     any-wood 0.5 (SA1 of every 24576 and 32768 batch takes the two-stage
     kNN, one group_min launch each; one grid scale at k = 32: the index
     fusion path), with group_min's launches counted apart in the model and
-    fusion phases; then ``fusion_indices`` against exact host fusion on a
-    seeded sample of 50 000 rows, with the trunk field as
-    probabilities."""
+    fusion phases and the index fusion's seconds split by part
+    (``index_fusion_clock``; the readback re-timed after the run on
+    device arrays of the same sizes, the remainder the rest of
+    ``fusion_indices``'s wall); then ``fusion_indices`` against exact
+    host fusion on a seeded sample of 50 000 rows, with the trunk field
+    as probabilities."""
     import io
 
     import torch
@@ -930,9 +1288,15 @@ def predict_large_phases(dev, smi, rows, wrappers, large, model_path):
     fusion_launches: dict = {}
     real_indices = device_fusion.fusion_indices
 
+    split: dict = {}
+
     def counted_indices(*args, **kwargs):
         before = {k: fn.launches for k, fn in wrappers.items()}
-        out = real_indices(*args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with index_fusion_clock(split):
+            out = real_indices(*args, **kwargs)
+        split["fusion_indices"] = time.perf_counter() - t0
         fusion_launches.update({k: fn.launches - before[k]
                                 for k, fn in wrappers.items()})
         return out
@@ -976,6 +1340,19 @@ def predict_large_phases(dev, smi, rows, wrappers, large, model_path):
         raise AssertionError("predict_large: pwood outside [0, 1]")
     model_launches = {k: v - fusion_launches.get(k, 0)
                       for k, v in launches.items()}
+    # the readback of tile_knn_indices: (N, 32) int64 indices and the (N,)
+    # covered flags (one scale at k = 32 reads no distances back)
+    n_q = n_plot
+    back = (torch.zeros((n_q, 32), dtype=torch.int64, device=dev),
+            torch.zeros(n_q, dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in back:
+        t.cpu().numpy()
+    split["readback"] = time.perf_counter() - t0
+    del back
+    split["remainder"] = split["fusion_indices"] - sum(
+        v for k, v in split.items() if k != "fusion_indices")
 
     # the CLI's tiling, for the bucket counts: SA1 takes the two-stage
     # kNN once per batch of more than 16384 points
@@ -998,6 +1375,7 @@ def predict_large_phases(dev, smi, rows, wrappers, large, model_path):
          seconds=rec["seconds"], wall_s=wall_s,
          points_per_s=n_plot / wall_s, launches=launches,
          launches_model=model_launches, launches_fusion=fusion_launches,
+         index_fusion_split_s=split,
          max_memory_gib=peak_gib, fusion_line=fusion_lines[0],
          wood_fraction=float(labels.mean()), mean_pwood=float(pwood.mean()))
     if not (batches_per_bucket.get(32768) and batches_per_bucket.get(24576)):
@@ -1168,12 +1546,48 @@ def blend_bwd_rows(dev, rows, seed):
             "live_slots": n_live, "max_abs_err": err,
             "tolerance": "2^-7 |plain| + 1e-5 max|plain| (bf16 rounding of "
                          "an fp32 sum taken in atomic order)",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "ms": ms,
+            "bracketed_ms": bracketed_ms(
+                lambda: interp_blend_bwd(d_y, idx, d2, tm, n_src)),
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms,
             "library_call": "Tensor.index_add_ of the pre-weighted live "
                             "rows into an fp32 (B*S, C) buffer",
         })
         emit("kernel", **rows[-1])
+
+
+def floors_phase(rows, sass) -> None:
+    """Phase ``floors``: the issue-rate floor of each row of the FMA-free
+    selections and of ``group_min``, the least time the SMs need to issue
+    the instructions of its inner loop's hot path (the build's SASS count a
+    pair, ``sass``) for its distance pairs at ``LANE_OPS_PER_S``.
+    Arithmetic over a count, not a measurement: it stays out of the
+    ``kernels`` line."""
+    from pointstowood_tpu_torch.ops.knn_kernels import topk_instance
+
+    def kernel_of(row):
+        last = row["shape"][-1]
+        return {"knn_topk": f"knn_topk_kernel<{topk_instance(last)}>",
+                "knn_top2": f"knn_top2_kernel<{row.get('lanes')}>",
+                "pair_select": f"pair_select_kernel<{last}>",
+                "group_min": f"group_min_kernel<{last}>"}[row["wrapper"]]
+
+    floors = []
+    for row in rows:
+        if row["wrapper"] not in ("knn_topk", "knn_top2", "pair_select",
+                                  "group_min"):
+            continue
+        kernel = kernel_of(row)
+        per_pair = sass.get(kernel, {}).get("per_pair")
+        pairs = row["distance_pairs"]
+        floors.append({
+            "name": row["name"], "sass_kernel": kernel,
+            "distance_pairs": pairs, "instructions_per_pair": per_pair,
+            "issue_floor_ms": (pairs * per_pair / LANE_OPS_PER_S * 1e3
+                               if per_pair else None),
+            "ms": row["ms"]})
+    emit("floors", rate_per_s=LANE_OPS_PER_S, rows=floors)
 
 
 def rel_l1(a, b) -> float:
@@ -1530,9 +1944,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--compare-with", metavar="DIR",
-        help="a directory holding an earlier tree's knn.cu and fusion.cu "
-             "(with their headers): its knn_topk, knn_top2 and pair_select "
-             "are timed in turns with the current ones at the same shapes")
+        help="a directory holding an earlier tree's knn.cu, fusion.cu and "
+             "group_min.cu (with their headers): its knn_topk, knn_top2, "
+             "pair_select and group_min are timed in turns with the current "
+             "ones at the same shapes")
     compare_with = parser.parse_args(argv).compare_with
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1556,6 +1971,7 @@ def main(argv=None) -> int:
         knn_top2,
         knn_topk,
         select_plain,
+        top2_lanes,
     )
     from pointstowood_tpu_torch.predict.predicter import (
         build_net,
@@ -1582,17 +1998,24 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        build.build_all(verbose=True)
+        paths = build.build_all(verbose=True)
     print(log.getvalue(), end="", flush=True)
     for name in build.SOURCES:
         build.library(name)
+    sass_dir = os.path.join(ROOT, "build", "sass")
+    sass = {}
+    for name, prefixes in SASS_KERNELS.items():
+        sass.update(sass_inner_loops(paths[name], prefixes, sass_dir))
     emit("build", seconds=time.perf_counter() - t0,
          sources=[f"pointstowood_tpu_torch/csrc/{n}.cu"
                   for n in build.SOURCES],
-         ptxas=ptxas_usage(log.getvalue()))
+         ptxas=ptxas_usage(log.getvalue()), sass_inner_loops=sass)
+    earlier_knn_top2 = None
     if compare_with:
         t0 = time.perf_counter()
-        build.build_all(("knn", "fusion"), csrc=Path(compare_with))
+        build.build_all(("knn", "fusion", "group_min"),
+                        csrc=Path(compare_with))
+        earlier_knn_top2 = earlier_top2(compare_with)
         emit("build_compared", source=compare_with,
              seconds=time.perf_counter() - t0)
 
@@ -1613,10 +2036,14 @@ def main(argv=None) -> int:
     knn_src = "pointstowood_tpu_torch/csrc/knn.cu"
     pk = "pointstowood_tpu/ops/pallas_knn.py"
     select_cases = [
-        # (name, wrapper, rows level, cols level, k, replaces)
+        # (name, wrapper, rows level, cols level, k, replaces); k = 64 is
+        # Net(k=64)'s (phase forward_k64), not the main path's
         ("knn_topk SA1", knn_topk, 1, 0, k, f"{pk}:572"),
         ("knn_topk SA2", knn_topk, 2, 1, k, f"{pk}:572"),
         ("knn_topk SA3", knn_topk, 3, 2, k, f"{pk}:399"),
+        ("knn_topk SA1 k=64", knn_topk, 1, 0, 64, f"{pk}:572"),
+        ("knn_topk SA2 k=64", knn_topk, 2, 1, 64, f"{pk}:572"),
+        ("knn_topk SA3 k=64", knn_topk, 3, 2, 64, f"{pk}:399"),
         ("knn_top2 SA1 transpose", knn_top2, 0, 1, 2, f"{pk}:572"),
         ("knn_top2 SA2 transpose", knn_top2, 1, 2, 2, f"{pk}:572"),
         ("knn_top2 FP3", knn_top2, 2, 3, 2, f"{pk}:836"),
@@ -1624,6 +2051,7 @@ def main(argv=None) -> int:
     selected = {}
     for name, fn, ri, ci, kk, replaces in select_cases:
         r, (c, cm) = lv[ri][0], lv[ci]
+        b, nr, nc = r.shape[0], r.shape[1], c.shape[1]
         call = ((lambda: fn(r, c, cm, kk)) if fn is knn_topk
                 else (lambda: fn(r, c, cm)))
         d_k, i_k = call()
@@ -1631,8 +2059,21 @@ def main(argv=None) -> int:
         d_p, i_p = select_plain(r, c, cm, kk)
         err = check_exact(name, d_k, i_k, d_p, i_p)
         selected[name] = (i_k, d_k)
-        b, nr, nc = r.shape[0], r.shape[1], c.shape[1]
-        ms, compared_ms, turns = timed(call, compare_with)
+        extra = {}
+        if kk == 64:
+            # k of 33-64 runs the K = 64 instance and keeps k slots
+            d_48, i_48 = knn_topk(r, c, cm, 48)
+            torch.cuda.synchronize()
+            check_exact(f"{name.removesuffix(' k=64')} k=48", d_48, i_48,
+                        *select_plain(r, c, cm, 48))
+            extra["also_checked"] = "k=48, bit for bit"
+        if fn is knn_top2:
+            extra["lanes"] = top2_lanes(b, nr)
+        # an earlier tree may lack the K = 64 instance: k = 64 is timed alone
+        ms, compared_ms, turns = timed(
+            call, compare_with if kk != 64 else None,
+            (functools.partial(earlier_knn_top2, r, c, cm)
+             if fn is knn_top2 and earlier_knn_top2 else None))
         if fn is knn_top2:
             # the warp selection at K = 2 on the same inputs
             def warp_select():
@@ -1649,18 +2090,23 @@ def main(argv=None) -> int:
                            warmup=1)
         lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(r, c), kk, dim=-1,
                                             largest=False), reps=5)
-        bms, by = bound(8.0 * b * nr * nc,
-                        12 * b * (nr + nc) + b * nc + 8 * b * nr * kk)
+        pairs = float(b * nr * nc)
+        bms, by = bound(8.0 * pairs,
+                        12 * b * (nr + nc) + b * nc + 8 * b * nr * kk,
+                        LANE_OPS_PER_S)
         rows.append({
             "name": name, "check": "ok", "route": "cuda", "source": knn_src,
             "replaces": replaces, "wrapper": fn.__name__,
             "shape": [b, nr, nc, kk], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "distance_pairs": pairs, "bracketed_ms": bracketed_ms(call),
+            **extra,
             "compared_ms": compared_ms, "turns_ms": turns,
             "library_ms": lib_ms,
             "library_call": "torch.topk(torch.cdist(rows, cols)), no mask",
         })
         emit("kernel", **rows[-1])
+    top2_lanes_phase(lv, selected)
     adversarial_phase(dev)
 
     # K3 at FP3 (the FP3 top-2 above), FP2 and FP1 (the SA2 and SA1
@@ -1711,7 +2157,10 @@ def main(argv=None) -> int:
             "source": "pointstowood_tpu_torch/csrc/interp.cu",
             "replaces": "pointstowood_tpu/ops/pallas_interp.py:168",
             "wrapper": "interp_blend", "shape": [bsz, n_t, n_s, c_fp],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms,
+            "bracketed_ms": bracketed_ms(
+                lambda: interp_blend(x, idx, d2, tmask)),
+            "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
             "library_call": "torch.nn.functional.embedding_bag(mode='sum', "
                             "per_sample_weights)",
@@ -1801,6 +2250,37 @@ def main(argv=None) -> int:
          top_kernels_ms=sorted(by_kernel.items(),
                                key=lambda kv: -kv[1])[:20])
 
+    # ---- 4b. Net(k=64): every SA stage's kNN on knn_topk's K = 64 instance
+    net64 = build_net(ModelConfig(k=64), device=dev)
+    net64.load_state_dict(
+        state_dict_from_flax(seeded_flax_variables(net64, SEED)))
+    for fn in every_wrapper.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    p64 = forward_probs(net64, pos, refl, mask, sf)
+    torch.cuda.synchronize()
+    k64_launches = {name: fn.launches for name, fn in every_wrapper.items()}
+    live64 = p64.float()[mask]
+    if tuple(p64.shape) != tuple(mask.shape) \
+            or not bool(torch.isfinite(live64).all()):
+        raise AssertionError("Net(k=64): non-finite or misshapen output")
+    if k64_launches["knn_topk"] != 3:
+        raise AssertionError(f"Net(k=64): {k64_launches['knn_topk']} "
+                             f"knn_topk launches, not 3 (SA1-SA3)")
+    fwd64 = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        forward_probs(net64, pos, refl, mask, sf)
+        torch.cuda.synchronize()
+        if i >= 2:
+            fwd64.append((time.perf_counter() - t1) * 1e3)
+    emit("forward_k64", batch=[8, 16384], k=64,
+         stage_routes=net64.stage_routes(16384), launches=k64_launches,
+         forward_ms_b8x16384=statistics.median(fwd64),
+         mean_prob=float(live64.mean()))
+    del net64, p64
+
     # ---- 5. one full tile on the CPU (plain versions) vs the card
     one = pad_tiles([full[0]], 16384)
     cpu_net = copy.deepcopy(net).to("cpu")
@@ -1829,7 +2309,7 @@ def main(argv=None) -> int:
     # 32768-point tile CPU vs card, the CLI at max_pts 32768 on one grid
     # scale (index fusion path)
     large = large_tile_plot(SEED)
-    group_min_rows(net, dev, rows, large)
+    group_min_rows(net, dev, rows, large, compare_with)
     fwd32_launches = crosscheck_large(net, dev, large, every_wrapper)
     predict_large_phases(dev, smi, rows, {**wrappers, "group_min": group_min},
                          large, model_path)
@@ -1850,9 +2330,15 @@ def main(argv=None) -> int:
         row["launches_train_step"] = step_launches[row["wrapper"]]
     for row in rows[n_fwd:]:
         row["launches"] = step_launches["interp_blend_bwd"]
+    for row in rows:
+        if row["shape"][-1] == 64 and row["wrapper"] == "knn_topk":
+            row["launches"] = k64_launches["knn_topk"]
+            row["launches_path"] = "Net(k=64) forward (phase forward_k64)"
     train_cli_phase(dev, smi, train_wrappers, eval_ply, eval_wood)
 
-    # ---- 17. results
+    floors_phase(rows, sass)
+
+    # ---- 18. results
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": rows}, f, indent=1)

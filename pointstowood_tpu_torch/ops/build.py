@@ -43,7 +43,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "knn": {
         "ptw_knn_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "ptw_knn_top2": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "ptw_knn_top2_split": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "interp": {
         "ptw_interp_blend": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

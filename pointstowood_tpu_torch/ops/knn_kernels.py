@@ -4,8 +4,8 @@ Three wrappers, each beside its plain PyTorch version:
 
 * ``knn_topk`` (CUDA ``ptw_knn_topk``, csrc/knn.cu) replaces the Pallas
   ``group_min_topk`` and the forward half of ``group_min_topk_t``;
-* ``knn_top2`` (CUDA ``ptw_knn_top2``) replaces the Pallas ``top2`` and
-  the transpose half of ``group_min_topk_t``;
+* ``knn_top2`` (CUDA ``ptw_knn_top2_split``) replaces the Pallas ``top2``
+  and the transpose half of ``group_min_topk_t``;
 * ``group_min`` (CUDA ``ptw_group_min``, csrc/group_min.cu) replaces the
   Pallas ``group_min``: the first stage of the two-stage fast kNN.
 
@@ -13,7 +13,9 @@ The selections return the exact top-k by squared distance, ascending, ties
 to the lower column index, with the TRUE d2 (+inf for masked columns and
 unfilled slots; idx 0 there; a NaN distance is never selected).
 ``knn_topk`` runs the warp selection of csrc/select.cuh, shared with
-``pair_select``; its result equals ``select_plain`` bit for bit. A wrapper
+``pair_select``, at K = 2/8/16/32/64 (``topk_instance``); ``knn_top2``
+splits each row's columns over the lanes of a group, as many as the host
+picks (``top2_lanes``). Both equal ``select_plain`` bit for bit. A wrapper
 runs the plain version only when
 its inputs lie on the CPU; on a CUDA tensor it launches the kernel or
 raises. Each wrapper counts its kernel launches in its ``launches``
@@ -205,7 +207,37 @@ def group_min_plain(rows: torch.Tensor, cols: torch.Tensor,
 
 # --- kernel wrappers --------------------------------------------------------
 
-_TOPK_INSTANCES = (2, 8, 16, 32)
+_TOPK_INSTANCES = (2, 8, 16, 32, 64)
+
+
+def topk_instance(k: int) -> int:
+    """K of the ``ptw_knn_topk`` instance that serves k: the smallest of
+    ``_TOPK_INSTANCES`` not below k (the wrapper keeps the first k slots).
+    Raises ValueError past the largest."""
+    for inst in _TOPK_INSTANCES:
+        if inst >= k:
+            return inst
+    raise ValueError(f"knn_topk: k={k} exceeds the largest kernel instance, "
+                     f"K = {_TOPK_INSTANCES[-1]}")
+
+
+TOP2_LANES = (2, 4, 8, 16, 32)  # the lane counts it is built for
+# about one wave of 32 resident warps on each of the H100's 132 SMs
+_TOP2_MIN_WARPS = 4096
+
+
+def top2_lanes(b: int, n_rows: int) -> int:
+    """The host's choice of lanes a row group for ``knn_top2``: the fewest
+    that give the launch 4096 warps, about one wave of 32 resident warps an
+    SM (32 where none does). Each lane more halves a lane's columns but
+    makes every block read all columns for fewer rows, and adds merges: on
+    the H100 the fastest lane count at each canonical shape gave about
+    4096 warps (``chip_smoke.py`` phase ``top2_lanes`` times every one)."""
+    rows_a_thread = 2  # csrc/knn.cu kTop2Rows
+    for lanes in TOP2_LANES:
+        if b * n_rows * lanes // (rows_a_thread * 32) >= _TOP2_MIN_WARPS:
+            return lanes
+    return TOP2_LANES[-1]
 
 
 def _check_inputs(rows, cols, col_mask, name):
@@ -222,7 +254,7 @@ def _check_inputs(rows, cols, col_mask, name):
         raise ValueError(f"{name}: inputs on different devices")
 
 
-def _launch_select(owner, fn, rows, cols, col_mask, k_out, k_arg):
+def _launch_select(owner, fn, rows, cols, col_mask, k_out, extra=()):
     name = owner.__name__
     if rows.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {rows.device}")
@@ -235,9 +267,8 @@ def _launch_select(owner, fn, rows, cols, col_mask, k_out, k_arg):
     if b and n_rows:
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         args = [rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(), b, n_rows, n_cols]
-        if k_arg is not None:
-            args.append(k_arg)
+                out_d.data_ptr(), out_i.data_ptr(), b, n_rows, n_cols,
+                *extra]
         build.check(fn(*args, stream), name)
         owner.launches += 1
     return out_d, out_i
@@ -247,17 +278,16 @@ def knn_topk(rows: torch.Tensor, cols: torch.Tensor,
              col_mask: torch.Tensor, k: int):
     """Exact top-k nearest valid columns per row: rows (B, R, 3) f32,
     cols (B, C, 3) f32, col_mask (B, C) bool -> (d2 (B, R, k) f32,
-    idx (B, R, k) int32). CUDA: the ``ptw_knn_topk`` kernel for k <= 32
-    (instantiated at K = 2/8/16/32, the first k slots kept)."""
+    idx (B, R, k) int32). CUDA: the ``ptw_knn_topk`` kernel for k <= 64
+    (instance ``topk_instance(k)``, the first k slots kept); a larger k
+    raises ValueError before any launch."""
     _check_inputs(rows, cols, col_mask, "knn_topk")
     if rows.device.type == "cpu":
         return select_plain(rows, cols, col_mask, k)
-    inst = next((c for c in _TOPK_INSTANCES if c >= k), None)
-    if inst is None:
-        raise ValueError(f"knn_topk: k={k} exceeds {_TOPK_INSTANCES[-1]}")
+    inst = topk_instance(k)
     lib = build.library("knn")
     d, i = _launch_select(knn_topk, lib.ptw_knn_topk, rows, cols, col_mask,
-                          inst, inst)
+                          inst, (inst,))
     if inst != k:
         d, i = d[..., :k].contiguous(), i[..., :k].contiguous()
     return d, i
@@ -267,15 +297,17 @@ knn_topk.launches = 0
 
 
 def knn_top2(rows: torch.Tensor, cols: torch.Tensor,
-             col_mask: torch.Tensor):
+             col_mask: torch.Tensor, lanes: int | None = None):
     """Exact top-2 nearest valid columns per row (same contract as
-    ``knn_topk`` with k = 2). CUDA: the ``ptw_knn_top2`` kernel."""
+    ``knn_topk`` with k = 2). CUDA: the ``ptw_knn_top2_split`` kernel with
+    ``lanes`` lanes a row group (default ``top2_lanes`` of the shape)."""
     _check_inputs(rows, cols, col_mask, "knn_top2")
     if rows.device.type == "cpu":
         return select_plain(rows, cols, col_mask, 2)
+    lanes = lanes or top2_lanes(rows.shape[0], rows.shape[1])
     lib = build.library("knn")
-    return _launch_select(knn_top2, lib.ptw_knn_top2, rows, cols, col_mask,
-                          2, None)
+    return _launch_select(knn_top2, lib.ptw_knn_top2_split, rows, cols,
+                          col_mask, 2, (lanes,))
 
 
 knn_top2.launches = 0
