@@ -5,16 +5,19 @@ NVIDIA GPU.
     python3 chip_smoke.py [--compare-with DIR]
 
 With ``--compare-with DIR`` (an earlier tree's ``knn.cu``,
-``fusion.cu`` and ``group_min.cu``, with any header they include),
-``knn_topk`` at SA1-SA3 (k = 32), ``knn_top2`` at its three shapes,
-``pair_select`` over the plot's entries and ``group_min`` at its three
-shapes are also timed with that tree's kernels, built by the port's own
-build (``build.build_all``) and loaded by ``earlier_library``, launched
-through the port's wrappers on the same inputs (an earlier ``knn_top2``
-entry without a lane count through ``earlier_top2``), in turns (earlier, current,
-current, earlier): each row gains ``compared_ms`` and ``turns_ms``. A
-kernel PR uses it to time its new kernel against its parent's in one
-call.
+``fusion.cu``, ``group_min.cu`` and ``interp.cu``, with any header they
+include), ``knn_topk`` at SA1-SA3 (k = 32 and 64), ``knn_top2`` at its
+three shapes, ``pair_select`` over the plot's entries, ``group_min`` at
+its three shapes and the interpolation backward at FP3-FP1 are also timed
+with that tree's kernels, built by the port's own build
+(``build.build_all``) and loaded by ``earlier_library``, launched through
+the port's wrappers on the same inputs (an earlier ``knn_top2`` entry
+without a lane count through ``earlier_top2``, the earlier atomic
+``ptw_interp_blend_bwd`` through ``earlier_blend_bwd``), in turns
+(earlier, current, current, earlier): each row gains ``compared_ms`` and
+``turns_ms``; the build phase also reads the earlier selections' SASS
+(``build_compared``). A kernel PR uses it to time its new kernel against
+its parent's in one call.
 
 Phases, each printing one JSON line (any failed check raises, so the script
 exits non-zero and prints no final line):
@@ -32,7 +35,9 @@ exits non-zero and prints no final line):
                (B=8 tiles x 16384 points, C=32, bf16, fast kNN) gives it,
                held against its plain PyTorch version on the same CUDA
                inputs (the selections ``knn_topk``/``knn_top2`` bit for
-               bit; ``knn_topk`` also at k = 64 and 48, Net(k=64)'s), with
+               bit; ``knn_topk`` also at k = 64 and 48, Net(k=64)'s, and
+               at k = 128, Net(k=128)'s: two passes of K = 64, the second
+               held alone against ``select_plain_above``), with
                its time (``ms``: calls queued back to back, ``cuda_ms``;
                ``bracketed_ms``: each call bracketed alone), the plain
                version's time, a one-call PyTorch yardstick where one
@@ -41,13 +46,18 @@ exits non-zero and prints no final line):
                selection at K = 2, bit for bit against the plain version
                and timed in turns; (phase ``top2_lanes``) ``knn_top2`` with
                every lane count, bit for bit and timed.
+               (phase ``kernel``, ``knn_topk`` k = 65/96/200/512) the
+               passes past 64 at SA3's shape, driven through
+               ``ops.knn.knn_masked(method="fast")``: launches = passes,
+               bit for bit, timed.
                Then (phase ``adversarial``) the selections on inputs that
                break a wrong one, each bit for bit against its plain
-               version: duplicated columns, descending distances, fewer
-               columns than k, a ragged column count with a NaN row and
-               masks, a fully masked batch, 1 and 33 rows, ``knn_top2``
-               with every lane count and ``knn_topk`` at k = 2/8/16/32/
-               48/64;
+               version: duplicated columns, triplicated columns (ties
+               across slots 63/64 and 127/128), descending distances,
+               fewer columns than k, a ragged column count with a NaN row
+               and masks, a fully masked batch, 1 and 33 rows,
+               ``knn_top2`` with every lane count and ``knn_topk`` at
+               k = 2/8/16/32/48/64/65/96/128/200/512;
                ``pair_select`` entries with empty fine or coarse regions,
                a union shorter than k, q_len 0 and Q, a NaN query.
 4. forward  -- ``run_inference`` over a synthetic plot (8 full 16384-point
@@ -60,7 +70,13 @@ exits non-zero and prints no final line):
                Then (phase ``forward_k64``) the same batch through a
                ``Net(k=64)`` (every SA kNN on ``knn_topk``'s K = 64
                instance): finite probabilities, three ``knn_topk``
-               launches, its forward time.
+               launches, its forward time; and (phase ``forward_k128``)
+               through a ``Net(k=128)``: six ``knn_topk`` launches (two
+               passes a stage), its forward time. ``interp_blend`` at
+               k = 16 (the instance past 8 slots), driven through
+               ``ops.interpolate.knn_interpolate_batched(k=16,
+               method="fast")`` at FP1's shape: bit for bit against
+               ``blend_plain``, timed.
 5. crosscheck -- one full tile through the port on the CPU (plain versions)
                and on the card (kernels): labels and probabilities agree.
 6. predict  -- the serving path: a synthetic ~1.2 M-point plot of trees
@@ -111,19 +127,31 @@ exits non-zero and prints no final line):
 12. index_fusion_crosscheck -- ``fusion_indices`` on that tiling against
                exact host fusion (trunk field as probabilities) on a seeded
                sample of 50 000 rows.
-13. kernel (interp_blend_bwd) -- the interpolation backward kernel at the
-               train shapes (B=8, C=512, bf16, random 50% centres): FP3
+13. kernel (interp_blend_bwd) -- the interpolation backward at the train
+               shapes (B=8, C=512, bf16, random 50% centres): FP3
                4096 <- 2048 on the fused route's top-2, FP2 8192 <- 4096
                and FP1 16384 <- 8192 on the SA transpose neighbours; held
-               against ``blend_bwd_plain`` within one bf16 step (the fp32
-               sums run in atomic order); time, bound, plain version, and
-               one ``index_add_`` of the pre-weighted rows as yardstick.
+               bit for bit against ``blend_bwd_plain``, and the same on a
+               second call; its time (the list build and the gather), the
+               list build's alone (rows ``blend_bwd_lists``: offsets bit
+               for bit, each list the plain one's set of entries with
+               their weights and dens), bound,
+               plain version, and one ``index_add_`` of the pre-weighted
+               rows as yardstick. Then (phase ``adversarial_bwd``) bit for
+               bit on a source every target names, sources named by none,
+               all-masked batches, +inf slots and masked targets holding
+               garbage indices, k = 1/3/8/16, f32 and bf16, T = 0 and S
+               not a power of two.
 14. train_crosscheck -- one fp32 train step (fast kNN, centres supplied)
                on one full 16384-point tile on the CPU (plain versions) and
                on the card (kernels; FP3 fused, so the backward kernel runs
                at both of its routes): loss, logits, every gradient and the
                new BatchNorm statistics agree within
-               ``CROSSCHECK_TOLERANCES``.
+               ``CROSSCHECK_TOLERANCES``. The card's step runs twice more
+               from the same state: whether its gradients repeat bit for
+               bit, and (the second, under
+               ``torch.use_deterministic_algorithms(warn_only=True)``)
+               the ops torch names as nondeterministic.
 15. train_step -- ten train steps of B=8 x 16384, C=32, bf16, fast kNN with
                seeded weights and labels: median step time, split into
                forward, backward and optimizer; points/s; peak memory;
@@ -185,7 +213,8 @@ HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 132 * 128 * 1.98e9
 # The kernels whose inner loops the build phase reads in the SASS, by
 # library: the FMA-free selections and group_min.
-SASS_KERNELS = {"knn": ("knn_topk_kernel", "knn_top2_kernel"),
+SASS_KERNELS = {"knn": ("knn_topk_kernel", "knn_top2_kernel",
+                        "knn_topk_above_kernel"),
                 "fusion": ("pair_select_kernel",),
                 "group_min": ("group_min_kernel",)}
 
@@ -421,10 +450,13 @@ def in_turns(time_a, time_b) -> tuple[float, float, list]:
 
 
 # C signatures of the entry points that the compare path launches in an
-# earlier tree's libraries: this tree's, and the thread-per-row
-# ``ptw_knn_top2`` (no lane count) of a knn.cu without the split top-2.
+# earlier tree's libraries: this tree's, the thread-per-row
+# ``ptw_knn_top2`` (no lane count) of a knn.cu without the split top-2,
+# and the atomic ``ptw_interp_blend_bwd`` of an interp.cu without the
+# source-major gather.
 _EARLIER_LIBS: dict = {}
 _EARLIER_TOP2 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_EARLIER_BWD = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def earlier_library(name: str, src_dir: str):
@@ -432,7 +464,7 @@ def earlier_library(name: str, src_dir: str):
     csrc) by ``build.build_all``, loaded with ctypes, with only the entry
     points that the compare path launches declared: ``ptw_knn_topk`` and
     the top-2 (``ptw_knn_top2_split`` or, in its place, ``ptw_knn_top2``),
-    ``ptw_pair_select``, ``ptw_group_min``."""
+    ``ptw_pair_select``, ``ptw_group_min``, ``ptw_interp_blend_bwd``."""
     from pointstowood_tpu_torch.ops import build
 
     key = (name, src_dir)
@@ -440,8 +472,10 @@ def earlier_library(name: str, src_dir: str):
         path = build.build_all((name,), csrc=Path(src_dir))[name]
         lib = ctypes.CDLL(str(path))
         entries = {"knn": ["ptw_knn_topk"], "fusion": ["ptw_pair_select"],
-                   "group_min": ["ptw_group_min"]}[name]
+                   "group_min": ["ptw_group_min"],
+                   "interp": ["ptw_interp_blend_bwd"]}[name]
         signatures = dict(build._SIGNATURES[name])
+        signatures["ptw_interp_blend_bwd"] = _EARLIER_BWD
         if name == "knn" and not hasattr(lib, "ptw_knn_top2_split"):
             entries.append("ptw_knn_top2")
             signatures["ptw_knn_top2"] = _EARLIER_TOP2
@@ -502,6 +536,34 @@ def earlier_top2(src_dir: str):
         return None
     return lambda r, c, m: knn_kernels._launch_select(
         knn_kernels.knn_top2, lib.ptw_knn_top2, r, c, m, 2)
+
+
+def earlier_blend_bwd(src_dir: str, d_y, idx, d2, tmask, n_src):
+    """A call of an earlier tree's atomic interpolation backward,
+    ``ptw_interp_blend_bwd`` (zero an fp32 (B, S, C) buffer, scatter with
+    atomicAdd, cast), on the inputs ``interp_blend_bwd`` takes, as its
+    wrapper launched it (k <= 8)."""
+    import torch
+
+    from pointstowood_tpu_torch.ops import build
+
+    lib = earlier_library("interp", src_dir)
+    b, n_tgt, c = d_y.shape
+    idx = idx.to(torch.int32).contiguous()
+
+    def call():
+        acc = torch.empty((b, n_src, c), dtype=torch.float32,
+                          device=d_y.device)
+        d_x = acc if d_y.dtype == torch.float32 else torch.empty(
+            (b, n_src, c), dtype=d_y.dtype, device=d_y.device)
+        build.check(lib.ptw_interp_blend_bwd(
+            d_y.data_ptr(), idx.data_ptr(), d2.data_ptr(), tmask.data_ptr(),
+            acc.data_ptr(), d_x.data_ptr(), b, n_src, n_tgt, c,
+            idx.shape[-1], int(d_y.dtype == torch.bfloat16),
+            torch.cuda.current_stream(d_y.device).cuda_stream),
+            "earlier interp_blend_bwd")
+        return d_x
+    return call
 
 
 # ---------------------------------------------------------------- data
@@ -698,20 +760,26 @@ def adversarial_knn_inputs(seed):
     (2, R, 3), cols (2, C, 3), mask (2, C)) for R in {1, 33}; batch 1 of
     every case is fully masked. Duplicated columns (40 points 64 times
     each, shuffled: exact ties across lanes and shared-memory tiles),
-    columns in descending-distance order (each beats every column
-    before it), 5 columns (fewer than k), and 2085 random columns (not a
-    multiple of the tile) with a masked fifth and one NaN row."""
+    triplicated columns (250 points 3 times each, shuffled: every third
+    slot starts a tie, so ties straddle slots 63/64 and 127/128, the
+    boundaries of ``knn_topk``'s passes), columns in descending-distance
+    order (each beats every column before it), 5 columns (fewer than k),
+    and 2085 random columns (not a multiple of the tile) with a masked
+    fifth and one NaN row."""
     rng = np.random.default_rng(seed)
     cases = []
     for n_rows in (1, 33):
         rows = (rng.normal(size=(2, n_rows, 3)) * 0.1).astype(np.float32)
         base = rng.normal(size=(40, 3))
         dup = np.repeat(base, 64, axis=0)[rng.permutation(2560)]
+        trip = np.repeat(rng.normal(size=(250, 3)), 3,
+                         axis=0)[rng.permutation(750)]
         x = np.linspace(50.0, 1.0, 3000)
         desc = np.stack([x, np.zeros_like(x), np.zeros_like(x)], 1)
         short = rng.normal(size=(5, 3))
         ragged = rng.normal(size=(2085, 3))
         for name, cols in (("duplicated columns", dup),
+                           ("triplicated columns", trip),
                            ("descending distances", desc),
                            ("5 columns", short),
                            ("2085 columns, NaN row", ragged)):
@@ -759,7 +827,8 @@ def adversarial_pair_inputs(seed):
 def adversarial_phase(dev):
     """Phase ``adversarial``: every case of ``adversarial_knn_inputs``
     through ``knn_top2`` (with every lane count it has) and ``knn_topk``
-    at k = 2, 8, 16, 32, 48 and 64, and ``adversarial_pair_inputs`` through
+    at k = 2, 8, 16, 32, 48 and 64 and, in passes of K = 64, at k = 65,
+    96, 128, 200 and 512, and ``adversarial_pair_inputs`` through
     ``pair_select`` at k = 32 and 64, each held bit for bit against its
     plain version."""
     import torch
@@ -782,7 +851,8 @@ def adversarial_phase(dev):
                   functools.partial(knn_top2, r, c, m, lanes), 2)
                  for lanes in TOP2_LANES]
         calls += [(f"knn_topk k={k}", functools.partial(knn_topk, r, c, m, k),
-                   k) for k in (2, 8, 16, 32, 48, 64)]
+                   k) for k in (2, 8, 16, 32, 48, 64, 65, 96, 128, 200,
+                                512)]
         for what, call, k in calls:
             d_k, i_k = call()
             torch.cuda.synchronize()
@@ -806,6 +876,170 @@ def adversarial_phase(dev):
     return emit("adversarial", cases=len(checked), checked=checked,
                 tolerance="bit for bit (torch.equal on d2 and index or "
                           "payload)")
+
+
+def blend_k16_row(lv, rows, gen, c_fp):
+    """Phase ``kernel``: ``interp_blend`` at k = 16, the instance past
+    eight slots, at FP1's shape (8 x 16384 targets <- 8192 centres, C=512
+    bf16), driven through ``ops.interpolate.knn_interpolate_batched(k=16,
+    method="fast")`` (the gather route: ``knn_topk``, d2 from the gathered
+    positions, then ``interp_blend``), launches counted in that call; the
+    blend held bit for bit against ``blend_plain`` on the same (idx, d2),
+    timed alone."""
+    import torch
+
+    from pointstowood_tpu_torch.model.pointconv import gather_rows
+    from pointstowood_tpu_torch.ops.interp_kernels import (
+        blend_plain,
+        interp_blend,
+    )
+    from pointstowood_tpu_torch.ops.interpolate import (
+        knn_interpolate_batched,
+    )
+    from pointstowood_tpu_torch.ops.knn import knn_masked
+    from pointstowood_tpu_torch.ops.knn_kernels import knn_topk
+
+    (tp, tm), (sp, sm) = lv[0], lv[1]
+    bsz, n_s = sp.shape[:2]
+    x = torch.randn((bsz, n_s, c_fp), generator=gen,
+                    device=sp.device).to(torch.bfloat16)
+    interp_blend.launches = knn_topk.launches = 0
+    y_k = knn_interpolate_batched(x, sp, tp, k=16, source_mask=sm,
+                                  target_mask=tm, method="fast")
+    torch.cuda.synchronize()
+    launches = interp_blend.launches
+    if launches != 1 or knn_topk.launches != 1:
+        raise AssertionError(f"interp_blend k=16: {launches} blend and "
+                             f"{knn_topk.launches} knn_topk launches")
+    # the route's own (idx, d2)
+    idx, _, valid = knn_masked(tp, sp, 16, query_mask=tm, source_mask=sm,
+                               method="fast")
+    rel = gather_rows(sp.float(), idx) - tp.float()[:, :, None]
+    sq = rel * rel
+    d2 = torch.where(valid, (sq[..., 0] + sq[..., 1]) + sq[..., 2],
+                     math.inf)
+    y_p = blend_plain(x, idx, d2, tm)
+    if not torch.equal(y_k, y_p):
+        err = float((y_k.float() - y_p.float()).abs().max())
+        raise AssertionError(f"interp_blend k=16: differs from blend_plain "
+                             f"by {err}")
+    idx32 = idx.to(torch.int32).contiguous()
+    w = torch.where(valid, 1.0 / torch.clamp(d2, min=1e-16), 0.0)
+    w = (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-16))
+    flat = idx.long() + (torch.arange(bsz, device=sp.device)
+                         * n_s)[:, None, None]
+    flat2, w2 = flat.reshape(-1, 16), w.reshape(-1, 16).to(x.dtype)
+    x_flat = x.reshape(-1, c_fp)
+    live = valid & tm[..., None]
+    n_rows_read = int(torch.unique(flat[live]).numel())
+    n_t = tp.shape[1]
+    bms, by = bound(float(live.sum()) * 2 * c_fp + float(tm.sum()) * c_fp,
+                    n_rows_read * c_fp * 2 + bsz * n_t * (8 * 16 + 1)
+                    + bsz * n_t * c_fp * 2)
+    rows.append({
+        "name": "interp_blend FP1 k=16", "check": "ok", "route": "cuda",
+        "source": "pointstowood_tpu_torch/csrc/interp.cu",
+        "replaces": "pointstowood_tpu/ops/pallas_interp.py:168",
+        "wrapper": "interp_blend", "shape": [bsz, n_t, n_s, c_fp],
+        "launches": launches,
+        "launches_path": "ops.interpolate.knn_interpolate_batched(k=16, "
+                         "method='fast') at this shape, one call",
+        "max_abs_err": 0.0, "tolerance": "bit for bit (torch.equal)",
+        "ms": cuda_ms(lambda: interp_blend(x, idx32, d2, tm)),
+        "bracketed_ms": bracketed_ms(lambda: interp_blend(x, idx32, d2, tm)),
+        "plain_ms": cuda_ms(lambda: blend_plain(x, idx, d2, tm), reps=5),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            flat2, x_flat, per_sample_weights=w2, mode="sum")),
+        "library_call": "torch.nn.functional.embedding_bag(mode='sum', "
+                        "per_sample_weights)",
+    })
+    emit("kernel", **rows[-1])
+
+
+def check_second_pass(name, r, c, cm):
+    """One launch of ``ptw_knn_topk_above`` (pass 2 of a k > 64
+    selection) on the plain K = 64 selection of the same inputs, held bit
+    for bit against ``select_plain_above`` over its last slot."""
+    import torch
+
+    from pointstowood_tpu_torch.ops import build
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        select_plain,
+        select_plain_above,
+    )
+
+    prev_d, prev_i = select_plain(r, c, cm, 64)
+    b, nr, nc = r.shape[0], r.shape[1], c.shape[1]
+    out_d = torch.empty_like(prev_d)
+    out_i = torch.empty_like(prev_i)
+    build.check(build.library("knn").ptw_knn_topk_above(
+        r.data_ptr(), c.data_ptr(), cm.data_ptr(), prev_d.data_ptr(),
+        prev_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), b, nr, nc,
+        torch.cuda.current_stream(r.device).cuda_stream), name)
+    torch.cuda.synchronize()
+    check_exact(f"{name} pass 2", out_d, out_i,
+                *select_plain_above(r, c, cm, 64, prev_d[..., -1],
+                                    prev_i[..., -1]))
+
+
+def topk_passes_rows(lv, rows):
+    """Phase ``kernel``: ``knn_topk`` past k = 64 at SA3's shape (8 x 2048
+    centres x 4096 points), at k = 65, 96, 200 and 512, driven through the
+    op a caller uses, ``ops.knn.knn_masked(method="fast")`` (its route is
+    the in-kernel top-k up to k = 512): launches (= passes) counted in that
+    call, the result bit for bit against ``select_plain``, timed."""
+    import torch
+
+    from pointstowood_tpu_torch.ops.knn import knn_masked
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        fast_route,
+        knn_topk,
+        select_plain,
+        topk_plan,
+    )
+
+    (r, rm), (c, cm) = lv[3], lv[2]
+    b, nr, nc = r.shape[0], r.shape[1], c.shape[1]
+    for kk in (65, 96, 200, 512):
+        name = f"knn_topk SA3 k={kk}"
+        if fast_route(nc, kk) != "topk":
+            raise AssertionError(f"{name}: route {fast_route(nc, kk)}")
+        knn_topk.launches = 0
+        idx, d2, _ = knn_masked(r, c, kk, source_mask=cm, method="fast")
+        torch.cuda.synchronize()
+        launches = knn_topk.launches
+        passes = topk_plan(kk)[1]
+        if launches != passes:
+            raise AssertionError(f"{name}: {launches} launches, not "
+                                 f"{passes} passes")
+        d_p, i_p = select_plain(r, c, cm, kk)
+        err = check_exact(name, d2, idx.int(), d_p, i_p)
+
+        def call():
+            return knn_topk(r, c, cm, kk)
+        pairs = float(b * nr * nc)
+        bms, by = bound(8.0 * pairs,
+                        12 * b * (nr + nc) + b * nc + 8 * b * nr * kk,
+                        LANE_OPS_PER_S)
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda",
+            "source": "pointstowood_tpu_torch/csrc/knn.cu",
+            "replaces": "pointstowood_tpu/ops/pallas_knn.py:399",
+            "wrapper": "knn_topk", "shape": [b, nr, nc, kk],
+            "passes": passes, "launches": launches,
+            "launches_path": "ops.knn.knn_masked(method='fast') at this "
+                             "shape, one call",
+            "max_abs_err": err, "ms": cuda_ms(call),
+            "bracketed_ms": bracketed_ms(call),
+            "plain_ms": cuda_ms(lambda: select_plain(r, c, cm, kk), reps=3,
+                                warmup=1),
+            "bound_ms": bms, "bound_by": by, "distance_pairs": pairs,
+            "library_ms": cuda_ms(lambda: torch.topk(
+                torch.cdist(r, c), kk, dim=-1, largest=False), reps=5),
+            "library_call": "torch.topk(torch.cdist(rows, cols)), no mask",
+        })
+        emit("kernel", **rows[-1])
 
 
 def top2_lanes_phase(lv, selected):
@@ -910,7 +1144,8 @@ def serving_phases(net, dev, smi, rows, wrappers, compare_with=None,
         if n == 0:
             raise AssertionError(f"{name}: no launch on the predict path")
     for row in rows:
-        row["launches"] = launches[row["wrapper"]]
+        if "launches_path" not in row:  # rows driven on a path of their own
+            row["launches"] = launches[row["wrapper"]]
     emit("predict", nvidia_smi=smi, plot_points=n_plot, tiles=rec["tiles"],
          columns=list(out), seconds=rec["seconds"], wall_s=wall_s,
          points_per_s=n_plot / wall_s, launches=launches,
@@ -1470,32 +1705,52 @@ def train_geometry(pos, mask, caps, gen):
 
 
 def check_blend_bwd(name, d_k, d_p):
-    """Kernel vs plain backward: every contribution is rounded alike, but
-    the fp32 sums into one source row are taken in another (atomic) order,
-    and the sum is then rounded to bf16. Tolerance: one bf16 step of the
-    value (2^-7 |p|) plus 1e-5 of the largest |p| for the reordered fp32
-    sum. Returns the largest absolute difference."""
+    """Kernel vs plain backward: both sum each source's contributions in
+    ascending entry order with the same roundings, so they must be equal
+    bit for bit (``torch.equal``). Returns 0.0."""
     import torch
 
-    k, p = d_k.float(), d_p.float()
-    if not bool(torch.isfinite(k).all()):
-        raise AssertionError(f"{name}: non-finite gradient")
-    err = (k - p).abs()
-    tol = 2.0 ** -7 * p.abs() + 1e-5 * float(p.abs().max())
-    if bool((err > tol).any()):
+    if not torch.equal(d_k, d_p):
+        err = float((d_k.float() - d_p.float()).abs().max())
         raise AssertionError(f"{name}: differs from the plain version by "
-                             f"{float(err.max())}")
-    return float(err.max())
+                             f"{err} (must be bit for bit)")
+    return 0.0
 
 
-def blend_bwd_rows(dev, rows, seed):
-    """Phase 9: ``interp_blend_bwd`` at the train shapes (B=8, C=512 bf16;
-    FP3 4096 <- 2048 fused, FP2 8192 <- 4096 and FP1 16384 <- 8192 on the
-    transpose neighbours), held against ``blend_bwd_plain``."""
+def check_lists(name, got, ref):
+    """``blend_bwd_lists`` vs its plain version: offsets bit for bit; each
+    list the same set of (entry id, weight, den) bit for bit (the kernel
+    fills a list in no fixed order; the gather orders it)."""
+    import torch
+
+    o_k, o_p = got[0], ref[0]
+    if not torch.equal(o_k, o_p):
+        raise AssertionError(f"{name}: offsets differ")
+    n = int(o_p[-1])
+    o = o_p.long()
+    cell = torch.repeat_interleave(torch.arange(len(o) - 1, device=o.device),
+                                   o[1:] - o[:-1])
+    order = torch.sort(cell * 2**31 + got[1][:n].long()).indices
+    for a_k, a_p in zip(got[1:], ref[1:]):
+        if not torch.equal(a_k[:n][order], a_p):
+            raise AssertionError(f"{name}: a list holds other entries, "
+                                 f"weights or dens")
+
+
+def blend_bwd_rows(dev, rows, seed, ptxas, compare_with=None):
+    """Phase ``kernel`` (interp_blend_bwd): the interpolation backward at
+    the train shapes (B=8, C=512 bf16; FP3 4096 <- 2048 fused, FP2 8192 <-
+    4096 and FP1 16384 <- 8192 on the transpose neighbours), held bit for
+    bit against ``blend_bwd_plain`` and against itself on a second call;
+    timed in turns with ``compare_with``'s atomic kernel where given; and
+    its list build (``blend_bwd_lists``) held against
+    ``blend_bwd_lists_plain`` and timed alone, each in a row of its own."""
     import torch
 
     from pointstowood_tpu_torch.data.dataset import pad_tiles
     from pointstowood_tpu_torch.ops.interp_kernels import (
+        blend_bwd_lists,
+        blend_bwd_lists_plain,
         blend_bwd_plain,
         interp_blend_bwd,
     )
@@ -1507,16 +1762,29 @@ def blend_bwd_rows(dev, rows, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     geo = train_geometry(pos, mask, (8192, 4096, 2048), gen)
     c = 512
+    usage = {n: u for n, u in ptxas.items() if n.startswith("bwd_")}
     for name in ("FP3", "FP2", "FP1"):
         idx, d2, tm, n_src = geo[name]
         bsz, n_t = idx.shape[:2]
+        k = idx.shape[-1]
         d_y = torch.randn((bsz, n_t, c), generator=gen, device=dev).to(
             torch.bfloat16)
-        d_k = interp_blend_bwd(d_y, idx, d2, tm, n_src)
+
+        def call():
+            return interp_blend_bwd(d_y, idx, d2, tm, n_src)
+        d_k = call()
         torch.cuda.synchronize()
         d_p = blend_bwd_plain(d_y, idx, d2, tm, n_src)
         err = check_blend_bwd(f"interp_blend_bwd {name}", d_k, d_p)
-        ms = cuda_ms(lambda: interp_blend_bwd(d_y, idx, d2, tm, n_src))
+        check_blend_bwd(f"interp_blend_bwd {name}, second call", call(), d_k)
+        lists_p = blend_bwd_lists_plain(idx, d2, tm, n_src)
+        check_lists(f"blend_bwd_lists {name}",
+                    blend_bwd_lists(idx, d2, tm, n_src), lists_p)
+        ms, compared_ms, turns = timed(
+            call, compare_with,
+            (earlier_blend_bwd(compare_with, d_y, idx, d2, tm, n_src)
+             if compare_with else None))
+        lists_ms = cuda_ms(lambda: blend_bwd_lists(idx, d2, tm, n_src))
         plain_ms = cuda_ms(lambda: blend_bwd_plain(d_y, idx, d2, tm, n_src),
                            reps=5)
         # yardstick: one index_add_ of the pre-weighted rows of the live
@@ -1532,7 +1800,7 @@ def blend_bwd_rows(dev, rows, seed):
         lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, wrows))
         n_live, n_tgt = int(live.sum()), int(tm.sum())
         bms, by = bound(2.0 * n_live * c + n_tgt * c,
-                        bsz * n_t * c * 2 + bsz * n_t * 2 * (4 + 4)
+                        bsz * n_t * c * 2 + bsz * n_t * (k * 8 + 1)
                         + bsz * n_src * c * 2)
         rows.append({
             "name": f"interp_blend_bwd {name}", "check": "ok", "route": "cuda",
@@ -1544,17 +1812,135 @@ def blend_bwd_rows(dev, rows, seed):
                           "(pointstowood_tpu/model/pointconv.py:85-103)"),
             "wrapper": "interp_blend_bwd", "shape": [bsz, n_t, n_src, c],
             "live_slots": n_live, "max_abs_err": err,
-            "tolerance": "2^-7 |plain| + 1e-5 max|plain| (bf16 rounding of "
-                         "an fp32 sum taken in atomic order)",
-            "ms": ms,
-            "bracketed_ms": bracketed_ms(
-                lambda: interp_blend_bwd(d_y, idx, d2, tm, n_src)),
+            "tolerance": "bit for bit (torch.equal), and the same tensor "
+                         "on a second call",
+            "ms": ms, "lists_ms": lists_ms,
+            "bracketed_ms": bracketed_ms(call),
+            "compared_ms": compared_ms, "turns_ms": turns,
+            "compared": ("the earlier tree's atomic ptw_interp_blend_bwd "
+                         "(memset, atomicAdd scatter, cast)"
+                         if compare_with else None),
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms,
             "library_call": "Tensor.index_add_ of the pre-weighted live "
                             "rows into an fp32 (B*S, C) buffer",
+            "ptxas": usage,
         })
         emit("kernel", **rows[-1])
+        # the list build alone: reads idx, d2, tmask; writes offsets and
+        # the live entries with their weights and dens
+        lbms, lby = bound(float(bsz * n_t * k),
+                          bsz * n_t * (k * 8 + 1)
+                          + (bsz * n_src + 1) * 4 + n_live * 12)
+        rows.append({
+            "name": f"blend_bwd_lists {name}", "check": "ok",
+            "route": "cuda",
+            "source": "pointstowood_tpu_torch/csrc/interp.cu",
+            "replaces": "pointstowood_tpu/ops/pallas_interp.py:207",
+            "wrapper": "blend_bwd_lists", "shape": [bsz, n_t, n_src, k],
+            "live_slots": n_live, "max_abs_err": 0.0,
+            "tolerance": "offsets bit for bit, each list the plain "
+                         "one's set of (entry, weight, den)",
+            "ms": lists_ms,
+            "bracketed_ms": bracketed_ms(
+                lambda: blend_bwd_lists(idx, d2, tm, n_src)),
+            "plain_ms": cuda_ms(
+                lambda: blend_bwd_lists_plain(idx, d2, tm, n_src), reps=5),
+            "bound_ms": lbms, "bound_by": lby,
+            "library_ms": cuda_ms(lambda: torch.sort(flat, stable=True)),
+            "library_call": "torch.sort(stable=True) of the live entries' "
+                            "flat source index",
+        })
+        emit("kernel", **rows[-1])
+
+
+def adversarial_bwd_inputs(seed):
+    """Backward inputs that break a wrong gather, from numpy: (name, d_y
+    (B, T, C) f32, idx (B, T, k) int64, d2 (B, T, k) f32, tmask (B, T),
+    S). At k = 1, 3, 8, 16 (S = 777, not a power of two): the last 50
+    sources named by none, 30% empty slots (+inf) and every masked target
+    holding garbage nonzero indices, an all-masked batch, a coincident
+    source (d2 = 0); 37 sources of 500 targets at k = 3 (lists of about
+    30-45 entries, across the register sort's 32); d_y with zeros, -0,
+    tiny, subnormal, huge and +inf values and den_t past 2^60 (k = 128
+    coincident sources), which the gather's exact redo pass takes; a
+    source that every target names (lists of 4096 entries: the rank
+    sort); T = 0."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def make(name, b, t, s, k, c, named=None, empty=0.3):
+        named = s if named is None else named
+        idx = rng.integers(0, named, (b, t, k))
+        d2 = rng.uniform(0.01, 4.0, (b, t, k)).astype(np.float32)
+        hole = rng.random((b, t, k)) < empty
+        d2[hole] = np.inf
+        idx[hole] = rng.integers(1, s, int(hole.sum()))
+        tmask = rng.random((b, t)) > 0.2
+        if b > 2:
+            tmask[2] = False
+        idx[~tmask] = rng.integers(1, s, (int((~tmask).sum()), k))
+        if t:
+            d2[0, min(5, t - 1), 0] = 0.0
+        d_y = rng.normal(size=(b, t, c)).astype(np.float32)
+        cases.append((name, d_y, idx, d2, tmask, s))
+        return cases[-1]
+
+    for k in (1, 3, 8, 16):
+        make(f"k={k}, S=777, unnamed sources, garbage idx, masked batch",
+             3, 1000, 777, k, 64, named=727)
+    make("37 sources, lists across 32", 2, 500, 37, 3, 64, empty=0.1)
+    # values the gather's fast division does not vouch for (its exact
+    # redo pass) beside zeros, which it does
+    d_y = make("zeros, tiny, subnormal, huge and +inf d_y values", 2, 600,
+               211, 3, 64)[1]
+    for j, v in enumerate((0.0, -0.0, 1e-30, 1e-40, 1e30, 3e38, np.inf)):
+        d_y[0, 7 * j:7 * j + 5, j::7] = v
+    # den_t past 2^60: 128 coincident sources (w = 1e16 each)
+    d2 = make("k=128, den past 2^60", 2, 40, 90, 128, 64)[3]
+    d2[:, :10] = 0.0
+    _, _, idx, d2, tmask, _ = make("a source every target names", 2, 4096,
+                                   300, 2, 64, empty=0.0)
+    idx[:, :, 0] = 3
+    tmask[:] = True
+    make("T = 0", 2, 0, 100, 2, 64)
+    return cases
+
+
+def adversarial_bwd_phase(dev):
+    """Phase ``adversarial_bwd``: every case of ``adversarial_bwd_inputs``
+    in f32 and bf16 through ``interp_blend_bwd``, bit for bit against
+    ``blend_bwd_plain`` and against a second call, the lists against
+    ``blend_bwd_lists_plain`` (T >= 1)."""
+    import torch
+
+    from pointstowood_tpu_torch.ops.interp_kernels import (
+        blend_bwd_lists,
+        blend_bwd_lists_plain,
+        blend_bwd_plain,
+        interp_blend_bwd,
+    )
+
+    checked = []
+    for name, d_y, idx, d2, tmask, s in adversarial_bwd_inputs(SEED):
+        i, d, m = (torch.from_numpy(a).to(dev) for a in (idx, d2, tmask))
+        if d_y.shape[1]:
+            check_lists(f"adversarial blend_bwd_lists {name}",
+                        blend_bwd_lists(i, d, m, s),
+                        blend_bwd_lists_plain(i, d, m, s))
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(d_y).to(dev).to(dtype)
+            d_k = interp_blend_bwd(g, i, d, m, s)
+            torch.cuda.synchronize()
+            label = f"{name}, {str(dtype).removeprefix('torch.')}"
+            check_blend_bwd(f"adversarial {label}", d_k,
+                            blend_bwd_plain(g, i, d, m, s))
+            check_blend_bwd(f"adversarial {label}, second call",
+                            interp_blend_bwd(g, i, d, m, s), d_k)
+            checked.append(label)
+    return emit("adversarial_bwd", cases=len(checked), checked=checked,
+                tolerance="bit for bit (torch.equal), and the same tensor "
+                          "on a second call")
 
 
 def floors_phase(rows, sass) -> None:
@@ -1581,6 +1967,12 @@ def floors_phase(rows, sass) -> None:
         kernel = kernel_of(row)
         per_pair = sass.get(kernel, {}).get("per_pair")
         pairs = row["distance_pairs"]
+        passes = row.get("passes", 1)
+        if passes > 1 and per_pair:
+            # pass 1 on knn_topk_kernel<64>, the others on the floor pass
+            above = sass.get("knn_topk_above_kernel<64>", {}).get("per_pair")
+            kernel += f" + {passes - 1} x knn_topk_above_kernel<64>"
+            per_pair = (per_pair + (passes - 1) * above) if above else None
         floors.append({
             "name": row["name"], "sass_kernel": kernel,
             "distance_pairs": pairs, "instructions_per_pair": per_pair,
@@ -1609,10 +2001,16 @@ CROSSCHECK_TOLERANCES = {
 
 
 def train_crosscheck(dev, seed):
-    """Phase 10: one fp32 train step (fast kNN, centres supplied) on one
+    """Phase 14: one fp32 train step (fast kNN, centres supplied) on one
     full 16384-point tile, on the CPU (plain versions) and on the card
-    (kernels); FP3 takes the fused route only at this size. Returns the
-    record."""
+    (kernels); FP3 takes the fused route only at this size. The card's
+    step runs twice more from the same state: whether its loss, logits and
+    gradients repeat bit for bit on the second run, which gradients do
+    not, and (the third, under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``) the ops torch names as nondeterministic. Returns
+    the record."""
+    import warnings
+
     import torch
 
     from pointstowood_tpu_torch.config import ModelConfig, TrainConfig
@@ -1639,10 +2037,13 @@ def train_crosscheck(dev, seed):
         raise AssertionError("train routes at N=16384 are not "
                              "transpose/transpose/fused")
     results = {}
+    flagged = set()
     saved_rule, saved_clip = network.random_sample, trainer.clip_by_global_norm_
     try:
         network.random_sample = supplied_centres
-        for where in ("cpu", "cuda"):
+        for run in ("cpu", "cuda", "cuda again", "cuda deterministic",
+                    "cuda deterministic again"):
+            where = run.split()[0]
             net = copy.deepcopy(base).to(where)
             opt = trainer.make_optimizer(net, cfg)
             rec = {}
@@ -1661,9 +2062,19 @@ def train_crosscheck(dev, seed):
                      labels)]
             gen = torch.Generator(device=where)
             t0 = time.perf_counter()
-            loss, _, finite = step(*args, cfg.learning_rate, gen)
-            if where == "cuda":
-                torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if "deterministic" in run:
+                    torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    loss, _, finite = step(*args, cfg.learning_rate, gen)
+                    if where == "cuda":
+                        torch.cuda.synchronize()
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            flagged |= {str(w.message).split(" does not have")[0][:200]
+                        for w in caught
+                        if "deterministic" in str(w.message)}
             rec["seconds"] = time.perf_counter() - t0
             hook.remove()
             if not finite:
@@ -1673,7 +2084,7 @@ def train_crosscheck(dev, seed):
             rec["state"] = {k: v.detach().cpu().clone()
                             for k, v in net.state_dict().items()}
             rec["names"] = [n for n, _ in net.named_parameters()]
-            results[where] = rec
+            results[run] = rec
     finally:
         network.random_sample = saved_rule
         trainer.clip_by_global_norm_ = saved_clip
@@ -1699,6 +2110,22 @@ def train_crosscheck(dev, seed):
     carried = {k: v for k, v in per.items()
                if float(grads_c[k].abs().sum()) >= 1e-3 * mass}
     worst = sorted(carried.items(), key=lambda kv: -kv[1])[:5]
+    # the card against itself, same state and inputs: by default, and
+    # under torch's deterministic algorithms
+    def moved_between(a, b):
+        return [n for n, g, h in zip(a["names"], a["grads"], b["grads"])
+                if not torch.equal(g, h)]
+
+    def repeats(a, b):
+        return (a["loss"] == b["loss"] and torch.equal(a["logits"],
+                                                       b["logits"])
+                and not moved_between(a, b))
+
+    again = results["cuda again"]
+    det, det_again = (results["cuda deterministic"],
+                      results["cuda deterministic again"])
+    moved = moved_between(gpu, again)
+    repeatable = repeats(gpu, again)
     rec = emit("train_crosscheck", points=int(batch.mask.sum()),
                loss_cpu=cpu["loss"], loss_card=gpu["loss"],
                loss_rel=loss_rel, logits_max_abs=float(dl.max()),
@@ -1708,6 +2135,19 @@ def train_crosscheck(dev, seed):
                grads_rel_l1_conv2=per["conv2.weight"],
                running_stats_max_rel=stats, cpu_step_s=cpu["seconds"],
                card_step_s=gpu["seconds"],
+               card_repeatable_bit_for_bit=repeatable,
+               card_logits_repeat=torch.equal(again["logits"],
+                                              gpu["logits"]),
+               card_grads_checked=len(gpu["names"]),
+               card_grads_moved=len(moved),
+               # in forward order: the last are the nearest the loss, where
+               # the backward first met an op that sums in another order
+               card_grads_moved_nearest_loss=moved[-6:],
+               card_repeatable_deterministic_algorithms=repeats(det,
+                                                                det_again),
+               card_grads_moved_deterministic_algorithms=len(
+                   moved_between(det, det_again)),
+               card_nondeterministic_ops=sorted(flagged),
                tolerances=CROSSCHECK_TOLERANCES)
     tol = CROSSCHECK_TOLERANCES
     checks = {
@@ -1857,7 +2297,10 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     for fam, keys in (
             ("port kernels (csrc/*.cu)", ("knn_topk", "knn_top2",
-                                          "interp_blend", "cast_bf16",
+                                          "interp_blend", "bwd_count_kernel",
+                                          "bwd_scan_kernel", "bwd_fill_kernel",
+                                          "bwd_gather_kernel",
+                                          "bwd_redo_kernel",
                                           "pair_select", "group_min")),
             ("GEMM", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
             ("optimizer (foreach)", ("multi_tensor", "foreach")),
@@ -1944,10 +2387,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--compare-with", metavar="DIR",
-        help="a directory holding an earlier tree's knn.cu, fusion.cu and "
-             "group_min.cu (with their headers): its knn_topk, knn_top2, "
-             "pair_select and group_min are timed in turns with the current "
-             "ones at the same shapes")
+        help="a directory holding an earlier tree's knn.cu, fusion.cu, "
+             "group_min.cu and interp.cu (with their headers): its "
+             "knn_topk, knn_top2, pair_select, group_min and interpolation "
+             "backward are timed in turns with the current ones at the same "
+             "shapes")
     compare_with = parser.parse_args(argv).compare_with
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1962,6 +2406,7 @@ def main(argv=None) -> int:
     from pointstowood_tpu_torch.ops import build
     from pointstowood_tpu_torch.ops.fusion_kernels import pair_select
     from pointstowood_tpu_torch.ops.interp_kernels import (
+        blend_bwd_lists,
         blend_plain,
         interp_blend,
         interp_blend_bwd,
@@ -1972,6 +2417,7 @@ def main(argv=None) -> int:
         knn_topk,
         select_plain,
         top2_lanes,
+        topk_plan,
     )
     from pointstowood_tpu_torch.predict.predicter import (
         build_net,
@@ -2006,18 +2452,26 @@ def main(argv=None) -> int:
     sass = {}
     for name, prefixes in SASS_KERNELS.items():
         sass.update(sass_inner_loops(paths[name], prefixes, sass_dir))
+    ptxas = ptxas_usage(log.getvalue())
     emit("build", seconds=time.perf_counter() - t0,
          sources=[f"pointstowood_tpu_torch/csrc/{n}.cu"
                   for n in build.SOURCES],
-         ptxas=ptxas_usage(log.getvalue()), sass_inner_loops=sass)
+         ptxas=ptxas, sass_inner_loops=sass)
     earlier_knn_top2 = None
     if compare_with:
         t0 = time.perf_counter()
-        build.build_all(("knn", "fusion", "group_min"),
-                        csrc=Path(compare_with))
+        old = build.build_all(("knn", "fusion", "group_min", "interp"),
+                              csrc=Path(compare_with))
         earlier_knn_top2 = earlier_top2(compare_with)
+        old_sass = {}
+        for name, prefixes in SASS_KERNELS.items():
+            old_sass.update(sass_inner_loops(
+                old[name], prefixes, os.path.join(sass_dir, "compared")))
         emit("build_compared", source=compare_with,
-             seconds=time.perf_counter() - t0)
+             seconds=time.perf_counter() - t0,
+             per_pair={n: (v["per_pair"], sass.get(n, {}).get("per_pair"))
+                       for n, v in old_sass.items()},
+             per_pair_columns=["earlier", "current"])
 
     # ---- 3. kernels at the canonical shapes
     tiles = synthetic_tiles(SEED)
@@ -2044,6 +2498,10 @@ def main(argv=None) -> int:
         ("knn_topk SA1 k=64", knn_topk, 1, 0, 64, f"{pk}:572"),
         ("knn_topk SA2 k=64", knn_topk, 2, 1, 64, f"{pk}:572"),
         ("knn_topk SA3 k=64", knn_topk, 3, 2, 64, f"{pk}:399"),
+        # Net(k=128)'s (phase forward_k128): two passes of K = 64
+        ("knn_topk SA1 k=128", knn_topk, 1, 0, 128, f"{pk}:572"),
+        ("knn_topk SA2 k=128", knn_topk, 2, 1, 128, f"{pk}:572"),
+        ("knn_topk SA3 k=128", knn_topk, 3, 2, 128, f"{pk}:399"),
         ("knn_top2 SA1 transpose", knn_top2, 0, 1, 2, f"{pk}:572"),
         ("knn_top2 SA2 transpose", knn_top2, 1, 2, 2, f"{pk}:572"),
         ("knn_top2 FP3", knn_top2, 2, 3, 2, f"{pk}:836"),
@@ -2067,11 +2525,16 @@ def main(argv=None) -> int:
             check_exact(f"{name.removesuffix(' k=64')} k=48", d_48, i_48,
                         *select_plain(r, c, cm, 48))
             extra["also_checked"] = "k=48, bit for bit"
+        if kk > 64:
+            check_second_pass(name, r, c, cm)
+            extra["passes"] = topk_plan(kk)[1]
+            extra["also_checked"] = ("pass 2 alone against "
+                                     "select_plain_above, bit for bit")
         if fn is knn_top2:
             extra["lanes"] = top2_lanes(b, nr)
-        # an earlier tree may lack the K = 64 instance: k = 64 is timed alone
+        # the earlier tree has no passes past K = 64: k = 128 is timed alone
         ms, compared_ms, turns = timed(
-            call, compare_with if kk != 64 else None,
+            call, compare_with if kk <= 64 else None,
             (functools.partial(earlier_knn_top2, r, c, cm)
              if fn is knn_top2 and earlier_knn_top2 else None))
         if fn is knn_top2:
@@ -2106,6 +2569,7 @@ def main(argv=None) -> int:
             "library_call": "torch.topk(torch.cdist(rows, cols)), no mask",
         })
         emit("kernel", **rows[-1])
+    topk_passes_rows(lv, rows)
     top2_lanes_phase(lv, selected)
     adversarial_phase(dev)
 
@@ -2129,6 +2593,7 @@ def main(argv=None) -> int:
         tol = 1e-2 * float(y_p.float().abs().max())  # one bf16 step
         if not (torch.isfinite(y_k.float()).all() and err <= tol):
             raise AssertionError(f"{name}: max abs err {err} > {tol}")
+        bit_equal = bool(torch.equal(y_k, y_p))
         ms = cuda_ms(lambda: interp_blend(x, idx, d2, tmask))
         plain_ms = cuda_ms(lambda: blend_plain(x, idx, d2, tmask), reps=5)
         # yardstick: one embedding_bag call (sum of weighted gathered
@@ -2157,7 +2622,7 @@ def main(argv=None) -> int:
             "source": "pointstowood_tpu_torch/csrc/interp.cu",
             "replaces": "pointstowood_tpu/ops/pallas_interp.py:168",
             "wrapper": "interp_blend", "shape": [bsz, n_t, n_s, c_fp],
-            "max_abs_err": err, "ms": ms,
+            "max_abs_err": err, "bit_equal": bit_equal, "ms": ms,
             "bracketed_ms": bracketed_ms(
                 lambda: interp_blend(x, idx, d2, tmask)),
             "plain_ms": plain_ms,
@@ -2167,6 +2632,8 @@ def main(argv=None) -> int:
         })
         emit("kernel", **rows[-1])
 
+    blend_k16_row(lv, rows, g, c_fp)
+
     # ---- 4. the main path: run_inference over the plot. Every kernel's
     # launches are counted (each row's launches_forward); the forward
     # kernels must launch
@@ -2174,6 +2641,7 @@ def main(argv=None) -> int:
                 "interp_blend": interp_blend}
     every_wrapper = {**wrappers, "pair_select": pair_select,
                      "group_min": group_min,
+                     "blend_bwd_lists": blend_bwd_lists,
                      "interp_blend_bwd": interp_blend_bwd}
     for fn in every_wrapper.values():
         fn.launches = 0
@@ -2281,6 +2749,38 @@ def main(argv=None) -> int:
          mean_prob=float(live64.mean()))
     del net64, p64
 
+    # ---- 4c. Net(k=128): every SA kNN in two passes of K = 64
+    net128 = build_net(ModelConfig(k=128), device=dev)
+    net128.load_state_dict(
+        state_dict_from_flax(seeded_flax_variables(net128, SEED)))
+    for fn in every_wrapper.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    p128 = forward_probs(net128, pos, refl, mask, sf)
+    torch.cuda.synchronize()
+    k128_launches = {name: fn.launches for name, fn in every_wrapper.items()}
+    live128 = p128.float()[mask]
+    if tuple(p128.shape) != tuple(mask.shape) \
+            or not bool(torch.isfinite(live128).all()):
+        raise AssertionError("Net(k=128): non-finite or misshapen output")
+    if k128_launches["knn_topk"] != 6:
+        raise AssertionError(f"Net(k=128): {k128_launches['knn_topk']} "
+                             f"knn_topk launches, not 6 (SA1-SA3, two "
+                             f"passes each)")
+    fwd128 = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        forward_probs(net128, pos, refl, mask, sf)
+        torch.cuda.synchronize()
+        if i >= 2:
+            fwd128.append((time.perf_counter() - t1) * 1e3)
+    emit("forward_k128", batch=[8, 16384], k=128,
+         stage_routes=net128.stage_routes(16384), launches=k128_launches,
+         forward_ms_b8x16384=statistics.median(fwd128),
+         mean_prob=float(live128.mean()))
+    del net128, p128
+
     # ---- 5. one full tile on the CPU (plain versions) vs the card
     one = pad_tiles([full[0]], 16384)
     cpu_net = copy.deepcopy(net).to("cpu")
@@ -2316,24 +2816,31 @@ def main(argv=None) -> int:
 
     # ---- 13-16. training
     n_fwd = len(rows)
-    blend_bwd_rows(dev, rows, SEED)
+    blend_bwd_rows(dev, rows, SEED, ptxas, compare_with)
+    adversarial_bwd_phase(dev)
     for row in rows:
         row["launches_forward"] = fwd_launches[row["wrapper"]]
         row["launches_forward_32768"] = fwd32_launches[row["wrapper"]]
     train_crosscheck(dev, SEED)
     train_wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
                       "interp_blend": interp_blend,
+                      "blend_bwd_lists": blend_bwd_lists,
                       "interp_blend_bwd": interp_blend_bwd}
     _, step_launches = train_step_phase(dev, smi, every_wrapper, SEED,
                                         required=train_wrappers)
     for row in rows:
         row["launches_train_step"] = step_launches[row["wrapper"]]
     for row in rows[n_fwd:]:
-        row["launches"] = step_launches["interp_blend_bwd"]
+        row["launches"] = step_launches[row["wrapper"]]
     for row in rows:
-        if row["shape"][-1] == 64 and row["wrapper"] == "knn_topk":
+        if row["wrapper"] != "knn_topk" or "launches_path" in row:
+            continue
+        if row["shape"][-1] == 64:
             row["launches"] = k64_launches["knn_topk"]
             row["launches_path"] = "Net(k=64) forward (phase forward_k64)"
+        elif row["shape"][-1] == 128:
+            row["launches"] = k128_launches["knn_topk"]
+            row["launches_path"] = "Net(k=128) forward (phase forward_k128)"
     train_cli_phase(dev, smi, train_wrappers, eval_ply, eval_wood)
 
     floors_phase(rows, sass)

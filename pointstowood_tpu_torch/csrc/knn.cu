@@ -1,7 +1,8 @@
 // Exact fp32 k-nearest selection over static-shape point sets (sm_90a).
 //
 // Replaces three Pallas kernels of pointstowood_tpu/ops/pallas_knn.py:
-//   * group_min_topk   (_make_topk_kernel)   -> ptw_knn_topk, K = 8/16/32/64
+//   * group_min_topk   (_make_topk_kernel)   -> ptw_knn_topk, K = 8/16/32/64,
+//     and ptw_knn_topk_above, passes of K = 64 for a k past 64
 //   * group_min_topk_t (_make_topk_t_kernel) -> ptw_knn_topk for its
 //     forward half, ptw_knn_top2_split for its per-source transpose top-2
 //   * top2             (_make_top2_kernel)   -> ptw_knn_top2_split
@@ -24,6 +25,18 @@
 // a point; the (R, K) outputs are the largest array), and the contraction
 // depth is 3, so the tensor cores have nothing to do. K = 64 keeps two
 // list entries a lane; a k of 33-64 runs it and keeps the first k slots.
+//
+// ptw_knn_topk_above: a k past 64 runs in passes of the K = 64 selection
+// (knn_kernels.topk_plan): pass r selects the 64 smallest keys strictly
+// above the floor key (d2, idx) of slot 64 r - 1, the last slot of the
+// pass before (select.cuh, `Above`); each pass writes its own (B, R, 64)
+// slice of the wrapper's (passes, B, R, 64) output.
+// Keys are unique, so the passes joined are the exact top-k, ties to the
+// lower index included; a pass whose floor is the empty slot (+inf, 0)
+// stays empty. Each pass scans every column again: the work grows with
+// the passes, but no list past 64 entries (two a lane) is ever held, so k
+// has no upper limit (the floor key's registers make ptxas spill a few
+// bytes in this kernel; the build phase of chip_smoke.py lists them).
 //
 // ptw_knn_top2_split: split columns. L lanes of a warp share a group of
 // R = 2 rows; lane l of the group scans the columns c = l (mod L) in
@@ -103,6 +116,50 @@ knn_topk_kernel(const float* __restrict__ rows,
     int* oi = out_i + ((size_t)b * n_rows + r0 + r) * K;
 #pragma unroll
     for (int s = 0; s < Select<K>::kL; ++s) {
+      const int e = s * 32 + lane;
+      if (e < K) {
+        od[e] = key_d2(sel[r].lk[s]);
+        oi[e] = key_index(sel[r].lk[s]);
+      }
+    }
+  }
+}
+
+// One pass of a k > 64 selection: the K smallest keys of each row above
+// its floor, the key in the last slot of the row in the pass before
+// (prev_d, prev_i, (B, R, K)); written to out_d, out_i (B, R, K).
+template <int K>
+__global__ void __launch_bounds__(kWarps * 32)
+knn_topk_above_kernel(const float* __restrict__ rows,
+                      const float* __restrict__ cols,
+                      const unsigned char* __restrict__ col_mask,
+                      const float* __restrict__ prev_d,
+                      const int* __restrict__ prev_i,
+                      float* __restrict__ out_d, int* __restrict__ out_i,
+                      int n_rows, int n_cols) {
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRows;
+  const float* cb = cols + (size_t)b * n_cols * 3;
+  const unsigned char* mb = col_mask + (size_t)b * n_cols;
+  Select<K, true> sel[kRows];
+  select_block(rows + (size_t)b * n_rows * 3, r0, n_rows, n_cols,
+               [=](int c) {
+                 const float* p = cb + (size_t)c * 3;
+                 return mb[c] ? make_float3(p[0], p[1], p[2])
+                              : make_float3(NAN, NAN, NAN);
+               },
+               sel, [=](int q) {
+                 const size_t f = ((size_t)b * n_rows + q) * K + K - 1;
+                 return make_key(prev_d[f], prev_i[f]);
+               });
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r0 + r >= n_rows) break;
+    float* od = out_d + ((size_t)b * n_rows + r0 + r) * K;
+    int* oi = out_i + ((size_t)b * n_rows + r0 + r) * K;
+#pragma unroll
+    for (int s = 0; s < Select<K, true>::kL; ++s) {
       const int e = s * 32 + lane;
       if (e < K) {
         od[e] = key_d2(sel[r].lk[s]);
@@ -338,6 +395,26 @@ int ptw_knn_topk(const void* rows, const void* cols, const void* col_mask,
     case 64: return launch_topk<64>(r, c, m, d, i, b, n_rows, n_cols, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// One pass of a k > 64 selection (K = 64): prev_d / prev_i (B, R, 64) the
+// pass before (or ptw_knn_topk's K = 64 output), out_d / out_i (B, R, 64)
+// f32 / i32, the 64 nearest keys above each row's key in slot 63 of prev.
+// Returns the cudaError_t of the launch.
+int ptw_knn_topk_above(const void* rows, const void* cols,
+                       const void* col_mask, const void* prev_d,
+                       const void* prev_i, void* out_d, void* out_i, int b,
+                       int n_rows, int n_cols, void* stream) {
+  if (b > 65535) return (int)cudaErrorInvalidValue;
+  constexpr int per_block = kWarps * kRows;
+  dim3 grid((n_rows + per_block - 1) / per_block, b);
+  knn_topk_above_kernel<64><<<grid, kWarps * 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), static_cast<const float*>(cols),
+      static_cast<const unsigned char*>(col_mask),
+      static_cast<const float*>(prev_d), static_cast<const int*>(prev_i),
+      static_cast<float*>(out_d), static_cast<int*>(out_i), n_rows, n_cols);
+  return (int)cudaGetLastError();
 }
 
 // The k = 2 selection: out_d (B, R, 2), out_i (B, R, 2), with `lanes`

@@ -52,6 +52,14 @@
 // K (1 + ln(C / K)) keys pass an up-to-date K-th key over C columns in
 // random order; the K-th key here is as old as the last merge, so more
 // pass, and the per-key work is of the order of the scan.
+//
+// A floor (the template flag `Above`; ptw_knn_topk_above): with a floor
+// key per query, a key enters only if it is also strictly above the
+// floor, so the selection is the K smallest keys above it. Keys are
+// unique (the index is in the low word), so passes whose floor is the
+// previous pass's K-th key join into the exact top-(passes * K). A floor
+// of (+inf, 0), the empty slot, admits nothing. Without the flag the
+// floor is compiled out: the instances without it keep their hot path.
 
 #pragma once
 
@@ -109,7 +117,7 @@ __device__ __forceinline__ void sort32(Key& k) {
 // 32 less the few a late round adds.
 constexpr int kFlushAt = 28;
 
-template <int K, int Q>
+template <int K, int Q, bool Above = false>
 struct WarpSelect {
   static_assert(K == 2 || K == 8 || K == 16 || K == 32 || K == 64,
                 "K must be 2, 8, 16, 32 or 64");
@@ -122,8 +130,11 @@ struct WarpSelect {
   int cnt;     // this lane's queued keys
   int total;   // queued keys over the warp
   Key* queue;  // the lanes' queues: slot s of lane l at queue[s * 32 + l]
+  Key floor;   // with Above: only keys above it enter (its high word is
+               // its d2, which the vote reads)
 
-  __device__ __forceinline__ void init(Key* queue_keys) {
+  __device__ __forceinline__ void init(Key* queue_keys,
+                                       Key floor_key = kEmpty) {
 #pragma unroll
     for (int s = 0; s < kL; ++s) lk[s] = kEmpty;
     kth = kEmpty;
@@ -131,6 +142,7 @@ struct WarpSelect {
     cnt = 0;
     total = 0;
     queue = queue_keys;
+    if constexpr (Above) floor = floor_key;
   }
 
   // Offer this lane's candidates of U successive rounds: distances d2[u]
@@ -144,13 +156,20 @@ struct WarpSelect {
     static_assert(U < Q, "a queue must hold a group of rounds");
     bool near = false;
 #pragma unroll
-    for (int u = 0; u < U; ++u) near |= d2[u] <= kd;
+    for (int u = 0; u < U; ++u) {
+      if constexpr (Above) {
+        near |= d2[u] <= kd && d2[u] >= key_d2(floor);
+      } else {
+        near |= d2[u] <= kd;
+      }
+    }
     if (!__any_sync(kFull, near)) return;
     const int lane = lane_id();
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const Key key = make_key(d2[u], col + 32 * u);
-      const bool admit = key < kth;
+      bool admit = key < kth;
+      if constexpr (Above) admit = admit && key > floor;
       total += __popc(__ballot_sync(kFull, admit));
       if (admit) queue[32 * cnt++ + lane] = key;
     }
@@ -223,8 +242,8 @@ constexpr int kUnroll = 2;  // rounds of 32 columns a vote covers
 constexpr int kTile = 512;  // columns a shared-memory tile
 constexpr int kStaged = kTile / (kWarps * 32);  // columns a thread stages
 
-template <int K>
-using Select = WarpSelect<K, kQueue>;
+template <int K, bool Above = false>
+using Select = WarpSelect<K, kQueue, Above>;
 
 // One thread's share of a column tile, read from device memory ahead of
 // its turn: a column past n as NaN coordinates, whose distance no key
@@ -260,14 +279,20 @@ struct Stage {
 // calls it with the same n (it synchronises the block); a warp without
 // live queries only stages tiles. On return, entry s * 32 + lane of
 // sel[r].lk is query q0 + r's key s * 32 + lane, (+inf, 0) where there
-// is none.
-template <int K, class Fetch>
+// is none. With Above, floor_of(q) is query q's floor key (asked only
+// for a live query).
+struct NoFloor {
+  __device__ Key operator()(int) const { return kEmpty; }
+};
+
+template <int K, bool Above, class Fetch, class Floor = NoFloor>
 __device__ __forceinline__ void select_block(const float* queries, int q0,
                                              int n_live, int n,
                                              const Fetch& column,
-                                             Select<K> (&sel)[kRows]) {
+                                             Select<K, Above> (&sel)[kRows],
+                                             const Floor& floor_of = {}) {
   __shared__ float4 tiles[2][kTile];
-  __shared__ Key queues[kWarps][kRows][Select<K>::kQueueKeys];
+  __shared__ Key queues[kWarps][kRows][Select<K, Above>::kQueueKeys];
   const int warp = threadIdx.x >> 5;
   const int lane = lane_id();
   const bool live = q0 < n_live;  // uniform over the warp
@@ -275,7 +300,12 @@ __device__ __forceinline__ void select_block(const float* queries, int q0,
   float qx[kRows], qy[kRows], qz[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    sel[r].init(queues[warp][r]);
+    if constexpr (Above) {
+      sel[r].init(queues[warp][r],
+                  q0 + r < n_live ? floor_of(q0 + r) : kEmpty);
+    } else {
+      sel[r].init(queues[warp][r]);
+    }
     qx[r] = qy[r] = qz[r] = NAN;
     if (q0 + r < n_live) {
       const float* p = queries + (size_t)(q0 + r) * 3;

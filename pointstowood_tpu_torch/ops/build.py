@@ -43,11 +43,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "knn": {
         "ptw_knn_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ptw_knn_topk_above": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _P],
         "ptw_knn_top2_split": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "interp": {
         "ptw_interp_blend": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "ptw_interp_blend_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        "ptw_blend_bwd_lists": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _P],
+        "ptw_blend_bwd_gather": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _P],
     },
     "fusion": {

@@ -13,7 +13,9 @@ The selections return the exact top-k by squared distance, ascending, ties
 to the lower column index, with the TRUE d2 (+inf for masked columns and
 unfilled slots; idx 0 there; a NaN distance is never selected).
 ``knn_topk`` runs the warp selection of csrc/select.cuh, shared with
-``pair_select``, at K = 2/8/16/32/64 (``topk_instance``); ``knn_top2``
+``pair_select``, at K = 2/8/16/32/64, and a k past 64 in passes of
+K = 64, each above the last key of the pass before (``topk_plan``,
+``select_plain_above``); ``knn_top2``
 splits each row's columns over the lanes of a group, as many as the host
 picks (``top2_lanes``). Both equal ``select_plain`` bit for bit. A wrapper
 runs the plain version only when
@@ -156,15 +158,37 @@ def select_plain(rows: torch.Tensor, cols: torch.Tensor,
     valid columns hold (+inf, 0). A NaN distance counts as +inf, as in the
     kernels, which never select one: a row of NaN distances is all
     (+inf, 0)."""
+    return _select(rows, cols, col_mask, k, None)
+
+
+def select_plain_above(rows: torch.Tensor, cols: torch.Tensor,
+                       col_mask: torch.Tensor, k: int,
+                       floor_d2: torch.Tensor, floor_idx: torch.Tensor):
+    """Plain version of one pass of ``knn_topk`` past k = 64
+    (``ptw_knn_topk_above``): per row, the k smallest keys (d2, column)
+    strictly above the row's floor key (floor_d2, floor_idx) (B, R), in
+    ``select_plain``'s order and with its empty slots. Passes whose floor
+    is the key in the last slot of the pass before join into
+    ``select_plain``; a floor of (+inf, 0) gives an empty pass."""
+    return _select(rows, cols, col_mask, k, (floor_d2, floor_idx))
+
+
+def _select(rows, cols, col_mask, k, floor):
     b, n_rows, _ = rows.shape
     n_cols = cols.shape[1]
     kk = min(k, n_cols)
     out_d = torch.full((b, n_rows, k), math.inf, device=rows.device)
     out_i = torch.zeros((b, n_rows, k), dtype=torch.int32, device=rows.device)
     step = max(1, _CHUNK_ELEMS // max(1, b * n_cols))
+    col_idx = torch.arange(n_cols, device=rows.device)
     for lo in range(0, n_rows, step):
         d = pair_d2(rows[:, lo:lo + step], cols)
-        d = torch.where(col_mask[:, None, :] & ~torch.isnan(d), d, math.inf)
+        keep = col_mask[:, None, :] & ~torch.isnan(d)
+        if floor is not None:
+            fd = floor[0][:, lo:lo + step, None]
+            fi = floor[1][:, lo:lo + step, None]
+            keep &= (d > fd) | ((d == fd) & (col_idx > fi))
+        d = torch.where(keep, d, math.inf)
         vals, order = torch.sort(d, dim=-1, stable=True)
         vals, order = vals[..., :kk], order[..., :kk]
         out_d[:, lo:lo + step, :kk] = vals
@@ -210,15 +234,25 @@ def group_min_plain(rows: torch.Tensor, cols: torch.Tensor,
 _TOPK_INSTANCES = (2, 8, 16, 32, 64)
 
 
-def topk_instance(k: int) -> int:
-    """K of the ``ptw_knn_topk`` instance that serves k: the smallest of
-    ``_TOPK_INSTANCES`` not below k (the wrapper keeps the first k slots).
-    Raises ValueError past the largest."""
+def topk_plan(k: int) -> tuple[int, int]:
+    """(K, passes) of the ``knn_topk`` launches that serve k >= 1: one
+    launch of the smallest instance of ``_TOPK_INSTANCES`` not below k, or,
+    past the largest, ceil(k / 64) passes of K = 64 (the first through
+    ``ptw_knn_topk``, each later one through ``ptw_knn_topk_above``). The
+    wrapper keeps the first k slots."""
+    if k < 1:
+        raise ValueError(f"knn_topk: k={k} < 1")
     for inst in _TOPK_INSTANCES:
         if inst >= k:
-            return inst
-    raise ValueError(f"knn_topk: k={k} exceeds the largest kernel instance, "
-                     f"K = {_TOPK_INSTANCES[-1]}")
+            return inst, 1
+    top = _TOPK_INSTANCES[-1]
+    return top, -(-k // top)
+
+
+def topk_instance(k: int) -> int:
+    """K of the ``ptw_knn_topk`` instance that serves k (of every pass,
+    past 64)."""
+    return topk_plan(k)[0]
 
 
 TOP2_LANES = (2, 4, 8, 16, 32)  # the lane counts it is built for
@@ -278,19 +312,46 @@ def knn_topk(rows: torch.Tensor, cols: torch.Tensor,
              col_mask: torch.Tensor, k: int):
     """Exact top-k nearest valid columns per row: rows (B, R, 3) f32,
     cols (B, C, 3) f32, col_mask (B, C) bool -> (d2 (B, R, k) f32,
-    idx (B, R, k) int32). CUDA: the ``ptw_knn_topk`` kernel for k <= 64
-    (instance ``topk_instance(k)``, the first k slots kept); a larger k
-    raises ValueError before any launch."""
+    idx (B, R, k) int32). CUDA: the launches of ``topk_plan(k)``: for
+    k <= 64 one ``ptw_knn_topk`` kernel, else passes of K = 64, each
+    written into its slice of one (B, R, 64 * passes) output (the first k
+    slots kept); ``launches`` counts every pass."""
     _check_inputs(rows, cols, col_mask, "knn_topk")
     if rows.device.type == "cpu":
         return select_plain(rows, cols, col_mask, k)
-    inst = topk_instance(k)
+    inst, passes = topk_plan(k)
     lib = build.library("knn")
-    d, i = _launch_select(knn_topk, lib.ptw_knn_topk, rows, cols, col_mask,
-                          inst, (inst,))
-    if inst != k:
-        d, i = d[..., :k].contiguous(), i[..., :k].contiguous()
-    return d, i
+    if passes == 1:
+        d, i = _launch_select(knn_topk, lib.ptw_knn_topk, rows, cols,
+                              col_mask, inst, (inst,))
+        if inst != k:
+            d, i = d[..., :k].contiguous(), i[..., :k].contiguous()
+        return d, i
+    # pass r writes slice r of a (passes, B, R, 64) output, above the last
+    # slot of slice r - 1
+    rows, cols, col_mask = (t.contiguous() for t in (rows, cols, col_mask))
+    b, n_rows, n_cols = rows.shape[0], rows.shape[1], cols.shape[1]
+    out_d = torch.empty((passes, b, n_rows, inst), dtype=torch.float32,
+                        device=rows.device)
+    out_i = torch.empty((passes, b, n_rows, inst), dtype=torch.int32,
+                        device=rows.device)
+    if b and n_rows:
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        ins = (rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr())
+        build.check(lib.ptw_knn_topk(
+            *ins, out_d[0].data_ptr(), out_i[0].data_ptr(), b, n_rows,
+            n_cols, inst, stream), "knn_topk")
+        knn_topk.launches += 1
+        for r in range(1, passes):
+            build.check(lib.ptw_knn_topk_above(
+                *ins, out_d[r - 1].data_ptr(), out_i[r - 1].data_ptr(),
+                out_d[r].data_ptr(), out_i[r].data_ptr(), b, n_rows, n_cols,
+                stream), "knn_topk")
+            knn_topk.launches += 1
+    return (out_d.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
+            .contiguous(),
+            out_i.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
+            .contiguous())
 
 
 knn_topk.launches = 0

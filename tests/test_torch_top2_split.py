@@ -5,7 +5,10 @@ plain versions):
 
 * ``knn_topk``'s instance choice (``topk_instance``): every k that
   ``fast_route`` sends to the in-kernel top-k, up to 64, has an instance
-  of at least k; a larger k raises before any launch;
+  of at least k; a larger k runs in ceil(k / 64) passes of K = 64
+  (``topk_plan``), each the 64 smallest keys above the last key of the
+  pass before (``select_plain_above``), emulated here and equal to
+  ``select_plain(k)`` bit for bit;
 * ``knn_top2``'s split-column design, emulated here with numpy: L lanes
   each keep the top-2 of the columns c = lane (mod L) in ascending index
   order; after every column tile but the last the group's pair is shared
@@ -17,7 +20,7 @@ plain versions):
 * ``group_min_plain`` on all-masked groups and non-finite rows, the cases
   that ``group_min``'s masked members as +inf coordinates must keep (and
   why a non-finite row needs the kernel's masked loop);
-* ``select_plain`` at k = 64 against the JAX package's exact kNN.
+* ``select_plain`` at k = 64 and 128 against the JAX package's exact kNN.
 """
 
 import numpy as np
@@ -58,19 +61,73 @@ def test_topk_instance_covers_every_routed_k():
     assert kk.topk_instance(33) == kk.topk_instance(64) == 64
 
 
-@pytest.mark.parametrize("k", [65, 128, 512])
-def test_topk_instance_past_64_raises_before_a_launch(k):
-    with pytest.raises(ValueError, match="K = 64"):
-        kk.topk_instance(k)
-    # a tensor off the CPU goes to the kernel path, which must refuse k
-    # before it builds or launches anything
-    rows = torch.empty((1, 4, 3), device="meta")
-    cols = torch.empty((1, 8, 3), device="meta")
-    mask = torch.empty((1, 8), dtype=torch.bool, device="meta")
-    launches = kk.knn_topk.launches
-    with pytest.raises(ValueError, match="K = 64"):
-        kk.knn_topk(rows, cols, mask, k)
-    assert kk.knn_topk.launches == launches
+PAST_64 = [65, 128, 512]
+
+
+@pytest.mark.parametrize("k", PAST_64)
+def test_topk_plan_past_64_is_passes_of_the_k64_instance(k):
+    assert kk.topk_plan(k) == (64, -(-k // 64))
+    assert kk.topk_instance(k) == 64
+    # every k the topk route admits (up to 2 x fold = 512) has a plan
+    assert kk.fast_route(16384, k) == "topk"
+    assert kk.topk_plan(64) == (64, 1) and kk.topk_plan(2) == (2, 1)
+
+
+def _floor_passes(rows, cols, mask, k):
+    """knn_topk's passes past 64 on the plain versions: pass 0 is the
+    K = 64 selection, pass r the 64 smallest keys above slot 63 of pass
+    r - 1; joined and cut to k."""
+    inst, passes = kk.topk_plan(k)
+    d, i = kk.select_plain(rows, cols, mask, inst)
+    ds, idxs = [d], [i]
+    for _ in range(1, passes):
+        d, i = kk.select_plain_above(rows, cols, mask, inst, d[..., -1],
+                                     i[..., -1])
+        ds.append(d)
+        idxs.append(i)
+    return torch.cat(ds, -1)[..., :k], torch.cat(idxs, -1)[..., :k]
+
+
+def _pass_cases():
+    """Ties across the 63/64 (and 127/128) pass boundary: 3 copies of each
+    point at distinct distances from the row, so slots 63-65 hold copies
+    of one point; a short row (fewer valid columns than k, the rest
+    masked); a NaN row; a fully masked batch."""
+    rng = np.random.default_rng(64)
+    radii = np.sort(rng.uniform(1, 9, 250))
+    dirs = rng.normal(size=(250, 3))
+    pts = radii[:, None] * dirs / np.linalg.norm(dirs, axis=1,
+                                                  keepdims=True)
+    cols = np.repeat(pts, 3, axis=0)[rng.permutation(750)].astype(
+        np.float32)
+    rows = np.zeros((2, 4, 3), np.float32)
+    rows[:, 1:] = rng.normal(size=(2, 3, 3)) * 0.05
+    rows[0, 2, 0] = np.nan
+    mask = np.ones((2, 750), bool)
+    mask[0, rng.permutation(750)[:600]] = False  # 150 valid columns
+    mask[1] = False
+    mask[1, :3] = True  # a short batch
+    return rows, np.stack([cols, cols]), mask
+
+
+@pytest.mark.parametrize("k", PAST_64)
+def test_floor_passes_equal_select_plain(k):
+    rows, cols, mask = (torch.from_numpy(a) for a in _pass_cases())
+    d_s, i_s = _floor_passes(rows, cols, mask, k)
+    d_p, i_p = kk.select_plain(rows, cols, mask, k)
+    np.testing.assert_array_equal(d_s.numpy().view(np.uint32),
+                                  d_p.numpy().view(np.uint32))
+    np.testing.assert_array_equal(i_s.numpy(), i_p.numpy())
+    # the row at the origin ties across the pass boundary
+    full = kk.select_plain(rows, cols, torch.ones_like(mask), 130)[0]
+    assert full[1, 0, 63] == full[1, 0, 64]
+    d_f, i_f = _floor_passes(rows, cols, torch.ones_like(mask), k)
+    assert torch.equal(d_f, kk.select_plain(rows, cols,
+                                            torch.ones_like(mask), k)[0])
+    # the NaN row, the short rows' tails and passes past them are empty
+    assert torch.isinf(d_s[0, 2]).all() and not i_s[0, 2].any()
+    assert torch.isinf(d_s[0, :, 150:]).all()
+    assert torch.isinf(d_s[1, :, 3:]).all() and not i_s[1, :, 3:].any()
 
 
 # --- knn_top2: the split-column design ------------------------------------
@@ -276,7 +333,7 @@ def test_group_min_masked_members_as_inf_coordinates():
                                   equal_nan=True)
 
 
-# --- select_plain at k = 64 against the JAX exact kNN ----------------------
+# --- select_plain at k = 64 and 128 against the JAX exact kNN ---------------
 
 
 def test_select_plain_k64_matches_jax_exact_knn():
@@ -298,3 +355,23 @@ def test_select_plain_k64_matches_jax_exact_knn():
     for r in np.flatnonzero(distinct):
         assert set(j_idx[r].tolist()) == set(i_p[r].tolist())
     np.testing.assert_allclose(d, np.asarray(j_d), rtol=1e-5, atol=1e-5)
+
+
+def test_select_plain_k128_matches_jax_exact_knn():
+    rng = np.random.default_rng(128)
+    q = rng.normal(size=(40, 3)).astype(np.float32)
+    s = (rng.normal(size=(600, 3)) * 2).astype(np.float32)
+    smask = rng.random(600) > 0.2
+    j_idx, j_d = j_knn._exact_knn(jnp.asarray(q), jnp.asarray(s),
+                                  jnp.asarray(smask), 128, 256)
+    d_p, i_p = kk.select_plain(*(torch.from_numpy(a[None])
+                                 for a in (q, s, smask)), 128)
+    j_idx, i_p = np.asarray(j_idx), i_p.numpy()[0]
+    sep = np.sort(np.where(smask, ((q[:, None] - s[None]) ** 2).sum(-1),
+                           np.inf), axis=1)
+    distinct = (sep[:, 128] - sep[:, 127]) > 1e-4 * (1 + sep[:, 127])
+    assert distinct.sum() >= 30
+    for r in np.flatnonzero(distinct):
+        assert set(j_idx[r].tolist()) == set(i_p[r].tolist())
+    np.testing.assert_allclose(np.sort(d_p.numpy()[0], axis=1),
+                               np.asarray(j_d), rtol=1e-5, atol=1e-5)
