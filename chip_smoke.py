@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``pointstowood_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py [--compare-with DIR]
+    python3 chip_smoke.py [--compare-with DIR] [--accuracy-epochs E]
 
 With ``--compare-with DIR`` (an earlier tree's ``knn.cu``,
 ``fusion.cu``, ``group_min.cu`` and ``interp.cu``, with any header they
@@ -18,6 +18,12 @@ without a lane count through ``earlier_top2``, the earlier atomic
 ``turns_ms``; the build phase also reads the earlier selections' SASS
 (``build_compared``). A kernel PR uses it to time its new kernel against
 its parent's in one call.
+
+Every phase runs in a fresh working directory, ``build/chip_smoke_cwd``:
+the fusion paths read a neighbour cache ``nbrs.npy`` from the working
+directory, and none may be there. ``--accuracy-epochs`` sets the epochs
+of phase ``accuracy`` (default 45: the reference script's 50 take just
+over the phase's 180 s on an H100).
 
 Phases, each printing one JSON line (any failed check raises, so the script
 exits non-zero and prints no final line):
@@ -87,6 +93,16 @@ exits non-zero and prints no final line):
                with x/y/z bit-identical, labels in {0, 1}, pwood on the
                1/2046 grid, and all four kernels' launch counters grew.
                Per-phase wall times, points per second, peak memory.
+6b. ckpt     -- the predict phase's seeded weights written as a flax
+               msgpack ``.ckpt`` by the port's own encoder
+               (``utils/msgpack.py``) and decoded again, every leaf bit for
+               bit; ``cli.predict.main --model model.ckpt`` on the plot
+               gives label and pwood bit-identical to the ``.pth`` run.
+6c. las      -- the plot written as LAS 1.4 point format 7 (intensity an
+               f8 extra dimension) by ``save_file``; ``load_file`` gives
+               exactly X * 0.001 + offset; ``cli.predict.main`` on the
+               ``.las`` gives label and pwood bit-identical to a PLY of
+               the decoded x/y/z.
 7. kernel (pair_select) -- the fusion kernel on the plot's real entries,
                over the flat arrays the CLI builds (its batcher, FlatSink
                layout and fusion plan), for k_out 64 and 32, with a
@@ -164,6 +180,17 @@ exits non-zero and prints no final line):
                points); the loss is finite and falls from epoch 1 to 2,
                and ``cli.predict.main`` serves the trained ``.pth`` on the
                predict phase's plot, scored by balanced accuracy.
+16b. accuracy -- scripts/c32_accuracy_and_knn_deviation.py on the card:
+               C=32, fast kNN, ``make_forest(seed=1)`` (a copy of
+               scripts/accuracy_smoke.py's), batch 8, lr 1e-3,
+               augmentation, into ``c32.ckpt`` (flax msgpack); the
+               held-out ``make_forest(seed=99)`` scored through
+               ``semantic_segmentation`` with the exact and the fast kNN:
+               balanced accuracy against the truth for each, their label
+               agreement and |delta pwood|, training wall time, final
+               loss, steps per second, each epoch's seconds. It fails
+               below BA 0.70 with either route, above 90% of points
+               labelled wood, or below 99% agreement of the routes.
 17. floors   -- each selection's and ``group_min``'s issue-rate floor:
                its distance pairs times the SASS hot path's instructions
                a pair (phase 2) over the SMs' issue rate; arithmetic, kept
@@ -2379,6 +2406,299 @@ def train_cli_phase(dev, smi, wrappers, eval_ply, eval_wood, n_side=6):
     return rec
 
 
+# ---------------------------------------------------------------- files
+
+
+def ckpt_phase(net, dev, smi, ply_path, pth_output):
+    """Phase ``ckpt``: the canonical seeded weights written as a flax
+    msgpack ``.ckpt`` by the port's encoder, decoded again (every leaf
+    bit for bit the source's), and served by ``cli.predict.main`` on the
+    predict phase's plot: label and pwood bit-identical to the ``.pth``
+    run's output ``pth_output``."""
+    import torch
+
+    from pointstowood_tpu_torch.cli import predict as predict_cli
+    from pointstowood_tpu_torch.io import read_ply
+    from pointstowood_tpu_torch.utils import msgpack
+
+    work = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    os.makedirs(work, exist_ok=True)
+    variables = seeded_flax_variables(net, SEED)
+    ckpt = os.path.join(work, "model.ckpt")
+    with open(ckpt, "wb") as f:
+        f.write(msgpack.packb(variables))
+    with open(ckpt, "rb") as f:
+        decoded = msgpack.unpackb(f.read())
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    src, got = dict(leaves(variables)), dict(leaves(decoded))
+    if src.keys() != got.keys():
+        raise AssertionError(f"ckpt: leaves differ: "
+                             f"{sorted(src.keys() ^ got.keys())[:5]}")
+    for name, a in src.items():
+        b = got[name]
+        if not (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes()):
+            raise AssertionError(f"ckpt: leaf {name} changed")
+    ref = read_ply(pth_output)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (rec,) = predict_cli.main(["--point-cloud", ply_path, "--model", ckpt],
+                              device=dev)
+    wall_s = time.perf_counter() - t0
+    out = read_ply(rec["output"])
+    same = {c: bool(np.array_equal(out[c], ref[c]))
+            for c in ("x", "y", "z", "label", "pwood")}
+    emit("ckpt", nvidia_smi=smi, leaves=len(src),
+         file_bytes=os.path.getsize(ckpt), leaves_bit_for_bit=True,
+         bit_identical_to_pth=same, plot_points=len(out["x"]),
+         wall_s=wall_s, seconds=rec["seconds"],
+         wood_fraction=float(out["label"].mean()))
+    if not all(same.values()):
+        raise AssertionError(f"ckpt: the .ckpt run differs from the .pth "
+                             f"run: {same}")
+
+
+def las_phase(dev, smi, plot, model_path):
+    """Phase ``las``: the predict phase's plot written as LAS 1.4 format 7
+    (its intensity an f8 extra dimension) by ``save_file``/``write_las``;
+    ``load_file`` must give exactly X * 0.001 + offset (X the stored
+    integers, offset the xyz minimum); ``cli.predict.main`` on the
+    ``.las`` must give label and pwood bit-identical to a PLY holding the
+    decoded x/y/z."""
+    import torch
+
+    from pointstowood_tpu_torch.cli import predict as predict_cli
+    from pointstowood_tpu_torch.io import (
+        load_file,
+        read_ply,
+        save_file,
+        write_ply,
+    )
+
+    work = os.path.join(ROOT, "build", "chip_smoke_las")
+    os.makedirs(work, exist_ok=True)
+    las_path = os.path.join(work, "plot.las")
+    t0 = time.perf_counter()
+    save_file(las_path, plot, additional_fields=["intensity"])
+    write_s = time.perf_counter() - t0
+    xyz = np.stack([plot[c] for c in "xyz"], 1)
+    offset = xyz.min(axis=0)
+    stored = np.round((xyz - offset) / 0.001) * 0.001 + offset
+    t0 = time.perf_counter()
+    decoded = load_file(las_path)
+    read_s = time.perf_counter() - t0
+    if sorted(decoded) != ["x", "y", "z"]:
+        raise AssertionError(f"las: columns {sorted(decoded)}")
+    for i, c in enumerate("xyz"):
+        if not np.array_equal(decoded[c], stored[:, i]):
+            raise AssertionError(f"las: {c} is not X * scale + offset")
+    max_q = float(np.abs(stored - xyz).max())
+    if max_q > 0.0005 + 1e-9:
+        raise AssertionError(f"las: quantisation error {max_q} > 0.5 mm")
+    ply_path = os.path.join(work, "plot_xyz.ply")
+    write_ply(ply_path, decoded)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (rec_las,) = predict_cli.main(["--point-cloud", las_path,
+                                   "--model", model_path], device=dev)
+    las_s = time.perf_counter() - t0
+    (rec_ply,) = predict_cli.main(["--point-cloud", ply_path,
+                                   "--model", model_path], device=dev)
+    a, b = read_ply(rec_las["output"]), read_ply(rec_ply["output"])
+    same = {c: bool(np.array_equal(a[c], b[c]))
+            for c in ("x", "y", "z", "label", "pwood")}
+    emit("las", nvidia_smi=smi, plot_points=len(a["x"]),
+         file_bytes=os.path.getsize(las_path), write_s=write_s,
+         read_s=read_s, max_abs_quantisation_m=max_q,
+         xyz_equal_x_scale_plus_offset=True,
+         bit_identical_to_decoded_ply=same, predict_las_wall_s=las_s,
+         seconds=rec_las["seconds"], wood_fraction=float(a["label"].mean()))
+    if not all(same.values()):
+        raise AssertionError(f"las: the .las run differs from the PLY of "
+                             f"its decoded x/y/z: {same}")
+
+
+# ---------------------------------------------------------------- accuracy
+
+
+def make_forest(seed, n_trees=4, pts_per_tree=25000):
+    """scripts/accuracy_smoke.py's synthetic forest as a column table
+    {x, y, z, reflectance, truth}: the same numpy draws in the same order,
+    so the same arrays. Trees of a cylindrical trunk and branch lines
+    (wood, truth 1) and a diffuse crown (leaf, truth 0); reflectance
+    weakly informative."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(n_trees):
+        cx, cy = rng.uniform(0, 30, 2)
+        height = rng.uniform(8, 14)
+        n_wood = pts_per_tree // 3
+        n_leaf = pts_per_tree - n_wood
+        theta = rng.uniform(0, 2 * np.pi, n_wood // 2)
+        r = rng.uniform(0.05, 0.25, n_wood // 2)
+        trunk = np.stack(
+            [cx + r * np.cos(theta), cy + r * np.sin(theta),
+             rng.uniform(0, height * 0.7, n_wood // 2)], 1)
+        n_br = n_wood - n_wood // 2
+        ang = rng.uniform(0, 2 * np.pi, n_br)
+        tdist = rng.uniform(0, 2.0, n_br)
+        bz = rng.uniform(height * 0.4, height * 0.9, n_br)
+        branches = np.stack(
+            [cx + tdist * np.cos(ang), cy + tdist * np.sin(ang), bz], 1
+        ) + rng.normal(0, 0.02, (n_br, 3))
+        crown = np.stack(
+            [cx + rng.normal(0, 1.5, n_leaf), cy + rng.normal(0, 1.5, n_leaf),
+             height * 0.65 + rng.normal(0, height * 0.2, n_leaf)], 1)
+        xyz = np.concatenate([trunk, branches, crown])
+        refl = np.concatenate(
+            [rng.normal(1.0, 0.6, n_wood), rng.normal(-0.5, 0.6, n_leaf)])
+        label = np.concatenate([np.ones(n_wood), np.zeros(n_leaf)])
+        parts.append((xyz, refl, label))
+    xyz = np.concatenate([p[0] for p in parts])
+    return {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+            "reflectance": np.concatenate([p[1] for p in parts]),
+            "truth": np.concatenate([p[2] for p in parts])}
+
+
+def balanced_accuracy(truth, pred) -> float:
+    """sklearn's ``balanced_accuracy_score``: the mean of the per-class
+    recall over the classes present in ``truth``."""
+    truth, pred = np.asarray(truth), np.asarray(pred)
+    return float(np.mean([np.mean(pred[truth == c] == c)
+                          for c in np.unique(truth)]))
+
+
+# The reference script trains 50 epochs. On an H100 at 700 W they took
+# 180.8 s (3.2 s a median epoch, 2.8-6.1 s), over the phase's budget of
+# 180 s; 45 is the largest count that fits with 10% left for that spread.
+# ``--accuracy-epochs 50`` runs the reference's count (see PERF.md).
+ACCURACY_EPOCHS = 45
+# the trained model must have learnt, and both kNN routes must agree: JAX's
+# BA at 50 epochs is 0.774 (fast) / 0.785 (exact), the truth 33% wood
+ACCURACY_MIN_BA = 0.70
+ACCURACY_MAX_WOOD = 0.9
+ACCURACY_MIN_AGREEMENT = 0.99
+
+
+def accuracy_phase(dev, smi, wrappers, epochs, channels=32):
+    """Phase ``accuracy`` (a port of
+    scripts/c32_accuracy_and_knn_deviation.py:62-131): train C=32 with the
+    fast kNN on ``make_forest(seed=1)`` for ``epochs`` epochs into
+    ``c32.ckpt`` (flax msgpack, the port's encoder), then score the
+    held-out ``make_forest(seed=99, n_trees=4)`` through
+    ``semantic_segmentation`` with the exact and the fast kNN: balanced
+    accuracy against the truth for each, and their label agreement and
+    |delta pwood|. The JAX package's numbers at 50 epochs: BA 0.774 (fast)
+    and 0.785 (exact), BASELINE.md."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from pointstowood_tpu_torch.config import (
+        ModelConfig,
+        PredictConfig,
+        TilingConfig,
+        TrainConfig,
+    )
+    from pointstowood_tpu_torch.data.tiling import preprocess_cloud
+    from pointstowood_tpu_torch.io.loader import canonicalize_columns
+    from pointstowood_tpu_torch.predict.predicter import (
+        build_net,
+        semantic_segmentation,
+    )
+    from pointstowood_tpu_torch.train.trainer import semantic_training
+    from pointstowood_tpu_torch.utils.checkpoint import load_checkpoint
+
+    wdir = os.path.join(ROOT, "build", "chip_smoke_accuracy")
+    shutil.rmtree(wdir, ignore_errors=True)
+    tiling = TilingConfig(grid_size=(2.0, 4.0), min_pts=128, max_pts=8192)
+    model_cfg = ModelConfig(channels=channels)  # fast kNN
+    train_pc, _, _ = canonicalize_columns(make_forest(seed=1), mode="train")
+    tiles = preprocess_cloud(train_pc, tiling, with_labels=True)
+    cfg = TrainConfig(num_epochs=epochs, batch_size=8, learning_rate=1e-3,
+                      augmentation=True)
+    epoch_end = []
+
+    def log(line):
+        if line.startswith("epoch "):
+            epoch_end.append(time.perf_counter())
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, history = semantic_training(tiles, cfg, model_cfg, tiling, wdir=wdir,
+                                   model_name="c32.ckpt", verbose=True,
+                                   log_fn=log, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    epoch_s = np.diff([t0] + epoch_end).tolist()
+    steps = epochs * -(-len(tiles) // cfg.batch_size)
+    losses = [row[2] for row in history]
+    ckpt = os.path.join(wdir, "model", "c32.ckpt")
+
+    test_raw = make_forest(seed=99, n_trees=4)
+    truth = test_raw.pop("truth")
+    results = {}
+    for mode in ("exact", "fast"):
+        pc, _, _ = canonicalize_columns(dict(test_raw), mode="predict")
+        test_tiles = preprocess_cloud(pc, tiling, seed=141190)
+        mcfg = dataclasses.replace(model_cfg, knn_mode=mode)
+        net = load_checkpoint(ckpt, build_net(mcfg, device=dev))
+        t1 = time.perf_counter()
+        out = semantic_segmentation(pc, test_tiles, net,
+                                    PredictConfig(batch_size=8), tiling,
+                                    device=dev)
+        results[mode] = (out, balanced_accuracy(truth, out["label"]),
+                         time.perf_counter() - t1)
+    (ex, ba_exact, s_exact), (fa, ba_fast, s_fast) = (results["exact"],
+                                                     results["fast"])
+    dp = np.abs(fa["pwood"] - ex["pwood"])
+    rec = emit(
+        "accuracy", nvidia_smi=smi, channels=channels, epochs=epochs,
+        epochs_of_the_reference_script=50, train_points=len(train_pc["x"]),
+        train_tiles=len(tiles), steps=steps, train_wall_s=train_s,
+        steps_per_s=steps / train_s, epoch_s=epoch_s,
+        first_epoch_s=epoch_s[0] if epoch_s else None,
+        median_epoch_s=(statistics.median(epoch_s[1:]) if len(epoch_s) > 1
+                        else None),
+        final_loss=losses[-1], loss_per_epoch=losses,
+        train_ba_per_epoch=[row[3] for row in history], launches=launches,
+        test_points=len(truth), test_wood_fraction=float(truth.mean()),
+        ba_exact=ba_exact, ba_fast=ba_fast,
+        wood_fraction_exact=float(ex["label"].mean()),
+        wood_fraction_fast=float(fa["label"].mean()),
+        label_agreement=float((fa["label"] == ex["label"]).mean()),
+        mean_abs_dpwood=float(dp.mean()),
+        p99_abs_dpwood=float(np.quantile(dp, 0.99)),
+        score_s={"exact": s_exact, "fast": s_fast},
+        jax_ba_50_epochs={"fast": 0.774, "exact": 0.785})
+    if not (np.isfinite(np.asarray(history)).all()
+            and len(history) == epochs):
+        raise AssertionError(f"accuracy: bad history {history}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no launch in the accuracy run")
+    if not (min(ba_exact, ba_fast) >= ACCURACY_MIN_BA
+            and max(rec["wood_fraction_exact"], rec["wood_fraction_fast"])
+            <= ACCURACY_MAX_WOOD
+            and rec["label_agreement"] >= ACCURACY_MIN_AGREEMENT):
+        raise AssertionError(
+            f"accuracy: BA {ba_exact:.4f} / {ba_fast:.4f} (exact / fast), "
+            f"wood {rec['wood_fraction_exact']:.3f}, agreement "
+            f"{rec['label_agreement']:.4f}")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2392,11 +2712,24 @@ def main(argv=None) -> int:
              "knn_topk, knn_top2, pair_select, group_min and interpolation "
              "backward are timed in turns with the current ones at the same "
              "shapes")
-    compare_with = parser.parse_args(argv).compare_with
+    parser.add_argument(
+        "--accuracy-epochs", type=int, default=ACCURACY_EPOCHS,
+        help="epochs of the accuracy phase's C=32 training (the reference "
+             "script's are 50)")
+    opts = parser.parse_args(argv)
+    compare_with = opts.compare_with
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    # every phase runs in a fresh working directory: the fusion paths
+    # read a neighbour cache nbrs.npy from the working directory
+    cwd = os.path.join(ROOT, "build", "chip_smoke_cwd")
+    import shutil
+
+    shutil.rmtree(cwd, ignore_errors=True)
+    os.makedirs(cwd)
+    os.chdir(cwd)
     from pointstowood_tpu_torch.config import (
         ModelConfig,
         PredictConfig,
@@ -2803,6 +3136,9 @@ def main(argv=None) -> int:
 
     eval_ply, eval_wood, model_path = serving_phases(
         net, dev, smi, rows, wrappers, compare_with)
+    ckpt_phase(net, dev, smi, eval_ply,
+               eval_ply.removesuffix(".ply") + "_ours.ply")
+    las_phase(dev, smi, synthetic_plot(SEED)[0], model_path)
 
     # ---- 9-12. large tiles, on a denser plot whose 4 m cells fill the
     # 24576 and 32768 buckets: group_min on its main path's inputs, one
@@ -2842,6 +3178,7 @@ def main(argv=None) -> int:
             row["launches"] = k128_launches["knn_topk"]
             row["launches_path"] = "Net(k=128) forward (phase forward_k128)"
     train_cli_phase(dev, smi, train_wrappers, eval_ply, eval_wood)
+    accuracy_phase(dev, smi, train_wrappers, opts.accuracy_epochs)
 
     floors_phase(rows, sass)
 

@@ -5,7 +5,7 @@ mirrors its module names (``ops/knn.py`` <-> ``ops/knn.py``, ...) so each
 counterpart is easy to find. It imports ``torch``, numpy and scipy, and
 never ``jax``, pandas or anything of ``pointstowood_tpu``.
 
-The serving path is ``cli/predict.py``: a PLY/PCD cloud is read into a
+The serving path is ``cli/predict.py``: a PLY/PCD/LAS cloud is read into a
 column table (``io/``), tiled on the dual grid (``data/tiling.py``),
 classified by the eval forward of ``model.Net`` over padded tile batches
 (``predict.run_inference``), and fused onto every original point on the
@@ -19,8 +19,9 @@ or raises.
 The training path is ``cli/train.py``: labelled PLYs are tiled the same
 way and ``train.trainer.semantic_training`` trains the Net (random 50%
 centres, masked batch-statistic BatchNorm, Poly1 focal loss, AdamW behind
-global-norm clipping) into a reference-layout ``.pth`` that the predict
-CLI serves. Its one extra kernel is the backward of the interpolation
+global-norm clipping) into a reference-layout ``.pth``, or the JAX
+package's flax msgpack ``.ckpt`` (``utils/msgpack.py``, no flax needed),
+that the predict CLI serves. Its one extra kernel is the backward of the interpolation
 blend (``ops/interp_kernels.interp_blend_bwd``).
 
 Entry points (``cli.predict.main``, ``cli.train.main``,

@@ -4,13 +4,14 @@ on the GPU (port of pointstowood_tpu/cli/predict.py).
     python -m pointstowood_tpu_torch.cli.predict --point-cloud plot.ply \\
         --model model.pth
 
-Reads each PLY/PCD cloud, tiles it (default dual 2 m / 4 m grid),
+Reads each PLY/PCD/LAS cloud, tiles it (default dual 2 m / 4 m grid),
 classifies every tile, fuses the predictions onto every original point
 and writes ``<name>_ours.ply`` next to the input with the input's extra
 columns plus ``n_z``, ``label`` and ``pwood``. The flags are the JAX
 CLI's (reference: pointstowood/predict.py:61-74); ``--fusion tpu`` keeps
-its spelling and means the device fusion paths. Checkpoints are
-reference-layout ``.pth`` files (``utils/checkpoint.py``).
+its spelling and means the device fusion paths. ``--model`` takes a
+reference-layout ``.pth`` or the JAX package's flax msgpack ``.ckpt``
+(``utils/checkpoint.py``).
 
 Runs on CUDA. ``main(argv, device="cpu")`` runs the plain PyTorch
 versions on the CPU instead (for tests); there is no device flag.
@@ -49,7 +50,8 @@ def parse_args(argv=None):
     parser.add_argument('--max_pts', type=int, default=16384,
                         help='maximum number of points in voxel')
     parser.add_argument('--model', type=str, default='model.pth',
-                        help='path to a reference-layout .pth checkpoint')
+                        help='path to a reference-layout .pth or a flax '
+                             'msgpack .ckpt checkpoint')
     parser.add_argument('--is-wood', default=0.5, type=float,
                         help='probability above which points within KNN are '
                              'classified as wood')

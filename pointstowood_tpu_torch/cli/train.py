@@ -6,12 +6,13 @@
 The flags are the JAX CLI's (reference: pointstowood/train.py:58-76, plus
 --wdir, --channels, --dtype), except that ``--device`` selects the torch
 device (default ``cuda``) and ``--model`` names a reference-layout
-``.pth`` (default ``model.pth``). Data layout is the reference's: labelled
+``.pth`` (default ``model.pth``) or a flax msgpack ``.ckpt``, the JAX
+package's format; an existing file of that name is resumed from. Data layout is the reference's: labelled
 PLYs under <wdir>/data/train/ and <wdir>/data/test/; --preprocess tiles
 them into <wdir>/data/{train,test}/voxels as .npy tiles that later runs
 reuse. Outputs: <wdir>/model/<model> (BatchNorm statistics recalibrated
 under the eval sampling), the rolling best checkpoints beside it, the
-history CSV, and <wdir>/checkpoints/epoch_<n>.pth.
+history CSV, and <wdir>/checkpoints/epoch_<n> with --model's suffix.
 
 ``main(argv, device=None)``: ``device`` overrides ``--device`` (the tests
 pass ``device="cpu"`` to run the plain PyTorch versions). Returns the
@@ -36,7 +37,8 @@ def parse_args(argv=None):
     parser.add_argument('--num_epochs', default=2, type=int, metavar='N')
     parser.add_argument('--checkpoint_saves', default=1, type=int, metavar='N')
     parser.add_argument('--model', type=str, default='model.pth',
-                        help='name of global model [e.g. model.pth]')
+                        help='name of global model [e.g. model.pth, '
+                             'model.ckpt]')
     parser.add_argument('--resolution', type=float, default=0.01,
                         help='accepted for parity; ignored like the reference')
     parser.add_argument('--grid_size', type=float, nargs='+', default=[2.0, 4.0])
@@ -108,7 +110,8 @@ def main(argv=None, device=None):
     )
 
     # zip + clear old checkpoints (reference train.py:90-94)
-    old = glob.glob(os.path.join(args.wdir, 'checkpoints/*.pth'))
+    old = [p for suffix in ('pth', 'ckpt') for p in
+           glob.glob(os.path.join(args.wdir, f'checkpoints/*.{suffix}'))]
     if old:
         shutil.make_archive(
             os.path.join(args.wdir, 'checkpoints_backup'), 'zip',

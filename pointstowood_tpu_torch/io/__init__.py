@@ -1,3 +1,4 @@
+from pointstowood_tpu_torch.io.las import read_las, write_las
 from pointstowood_tpu_torch.io.loader import load_file, save_file
 from pointstowood_tpu_torch.io.pcd import read_pcd, write_pcd
 from pointstowood_tpu_torch.io.ply import n_rows, read_ply, write_ply
@@ -10,4 +11,6 @@ __all__ = [
     "write_ply",
     "read_pcd",
     "write_pcd",
+    "read_las",
+    "write_las",
 ]

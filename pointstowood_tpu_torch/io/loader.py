@@ -5,8 +5,10 @@ on column tables (port of pointstowood_tpu/io/loader.py without pandas).
 (reference: pointstowood/src/io.py:149-225); ``canonicalize_columns``
 implements the column normalization both reference CLIs perform before
 preprocessing (reference: pointstowood/predict.py:36-52,
-train.py:36-49). LAS/LAZ needs laspy, which the port does not use: those
-files raise and point to the JAX package.
+train.py:36-49). LAS goes through the port's own reader and writer
+(``io/las.py``, no laspy): a LAS file gives x, y, z only, quantised to
+the file's scale (1 mm as the JAX package writes it), so only PLY keeps
+x/y/z bit for bit. LAZ needs a decompressor and raises.
 """
 
 from __future__ import annotations
@@ -16,28 +18,27 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from pointstowood_tpu_torch.io.las import read_las, write_las
 from pointstowood_tpu_torch.io.pcd import read_pcd
 from pointstowood_tpu_torch.io.ply import n_rows, read_ply, write_ply
 
 _PREDICTION_COLUMNS = ("label", "pwood", "pleaf")
 
 
-def _las_unsupported(filename: str) -> RuntimeError:
-    return RuntimeError(
-        f"{filename}: LAS/LAZ is not supported by pointstowood_tpu_torch "
-        "(it needs laspy); convert the cloud to PLY, or read it with the "
-        "JAX package (pointstowood_tpu.io.load_file)")
-
-
 def load_file(filename: str, additional_headers: bool = False,
               verbose: bool = False):
-    """Load a .ply/.pcd cloud into a column table. With
-    ``additional_headers=True`` also returns the non-xyz column names
-    (reference io.py:175-177)."""
+    """Load a .ply/.pcd/.las cloud into a column table (a LAS file gives
+    x, y, z only). With ``additional_headers=True`` also returns the
+    non-xyz column names (reference io.py:175-177)."""
     ext = os.path.splitext(filename)[1].lower()
-    if ext in (".las", ".laz"):
-        raise _las_unsupported(filename)
-    if ext == ".ply":
+    if ext == ".laz":
+        raise RuntimeError(
+            f"{filename}: LAZ is compressed LAS and needs a LASzip "
+            "decompressor, which pointstowood_tpu_torch does not have; "
+            "decompress it to .las (or convert it to .ply) first")
+    if ext == ".las":
+        pc = read_las(filename)
+    elif ext == ".ply":
         pc = read_ply(filename)
     elif ext == ".pcd":
         pc = read_pcd(filename)
@@ -52,16 +53,24 @@ def load_file(filename: str, additional_headers: bool = False,
 
 def save_file(filename: str, pointcloud, additional_fields: Sequence[str] = (),
               verbose: bool = False) -> None:
-    """Save a column table or (n, m) array to .ply or .csv (reference
-    io.py:180-225). PLY keeps x, y, z and ``additional_fields``; CSV
-    writes every column, space-separated, without a header."""
+    """Save a column table or (n, m) array to .ply, .las or .csv
+    (reference io.py:180-225). PLY and LAS keep x, y, z and
+    ``additional_fields`` (LAS: 1.4, point format 7, x/y/z to 1 mm, see
+    ``io/las.py``); CSV writes every column, space-separated, without a
+    header."""
     if verbose:
         print("Saving file:", filename)
     cols = ["x", "y", "z"] + [c for c in additional_fields
                               if c not in ("x", "y", "z")]
     if filename.endswith(".las"):
-        raise _las_unsupported(filename)
-    if filename.endswith(".csv"):
+        if isinstance(pointcloud, dict):
+            cols = [c for c in cols if c in pointcloud]
+            arr = np.stack([np.asarray(pointcloud[c], np.float64)
+                            for c in cols], 1)
+        else:
+            arr = np.asarray(pointcloud)
+        write_las(filename, arr, additional_fields=cols)
+    elif filename.endswith(".csv"):
         if isinstance(pointcloud, dict):
             columns = list(pointcloud.values())
         else:

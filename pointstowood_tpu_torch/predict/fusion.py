@@ -9,16 +9,25 @@ median and vote run as plain torch on the fusion device.
 
 This is the path for tilings that the device pair path declines (one
 grid scale, ``cluster_features``, ``min_pts < 32``; see
-``device_fusion.declines``).
+``device_fusion.declines``), and for every tiling when the working
+directory holds the reference's neighbour cache ``nbrs.npy``: its (N, k)
+indices of the original points into the classified rows are used as they
+are, with no search (reference predicter.py:131-134, JAX
+predict/fusion.py:189-192).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from pointstowood_tpu_torch.data.tiling import xyz_of
 from pointstowood_tpu_torch.utils.device import resolve_device
+
+# the reference's fusion neighbour cache, read from the working directory
+NBRS_CACHE = "nbrs.npy"
 
 
 def _fuse_chunk(prob: torch.Tensor, idx: torch.Tensor, is_wood: float,
@@ -114,10 +123,18 @@ class Fusion:
         """A new column table: ``original``'s columns (less ``pleaf``) with
         ``label`` and ``pwood`` set. ``indices``: optional precomputed
         (N, k) neighbour indices of the original points into the
-        classified rows; ``fused``: optional precomputed (N, 2)
-        [label, pwood] (the device pair path). The caller's table is not
-        modified."""
+        classified rows, else those of ``nbrs.npy`` in the working
+        directory where it exists, else an exact search; ``fused``:
+        optional precomputed (N, 2) [label, pwood] (the device pair
+        path). The caller's table is not modified."""
         out = {c: v for c, v in original.items() if c != "pleaf"}
+        if fused is None and indices is None and os.path.exists(NBRS_CACHE):
+            indices = np.load(NBRS_CACHE)
+            n = len(out["x"])
+            if indices.ndim != 2 or indices.shape[0] != n:
+                raise ValueError(
+                    f"{NBRS_CACHE}: indices of shape {indices.shape} do not "
+                    f"name k neighbours for each of the {n} points")
         if fused is None:
             fused = fuse_labels(classification, xyz_of(out), self.is_wood,
                                 self.any_wood, indices=indices,

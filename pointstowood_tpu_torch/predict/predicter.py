@@ -32,7 +32,11 @@ from pointstowood_tpu_torch.data.tiling import Tile, xyz_of
 from pointstowood_tpu_torch.model import Net
 from pointstowood_tpu_torch.ops.voxel import check_voxel_pack_range
 from pointstowood_tpu_torch.predict import device_fusion
-from pointstowood_tpu_torch.predict.fusion import Fusion, knn_indices
+from pointstowood_tpu_torch.predict.fusion import (
+    NBRS_CACHE,
+    Fusion,
+    knn_indices,
+)
 from pointstowood_tpu_torch.utils.device import resolve_device
 
 
@@ -152,8 +156,10 @@ def semantic_segmentation(
     set. ``net`` must live on ``device`` (default CUDA).
 
     Fusion path (``predict_cfg.fusion``), as the JAX package chooses it
-    (pointstowood_tpu/predict/predicter.py:253-270, 329-361):
+    (pointstowood_tpu/predict/predicter.py:233-270, 329-361):
 
+    * the host path with the indices of ``nbrs.npy``, and no search,
+      whenever the working directory holds that cache (whatever the mode);
     * the device pair path where ``device_fusion.declines`` accepts the
       tiling and the mode is not ``host``;
     * else the index path (``device_fusion.fusion_indices``: tile-local
@@ -187,7 +193,9 @@ def semantic_segmentation(
     n_scales = len({t.grid_size for t in tiles})
     reason = device_fusion.declines(tiles, tiling_cfg.min_pts,
                                     cluster_features)
-    if mode != "host" and reason is None:
+    if os.path.exists(NBRS_CACHE):
+        path = "cache"
+    elif mode != "host" and reason is None:
         path = "pair"
     elif mode == "tpu" or (
             mode == "auto" and not cluster_features
@@ -263,6 +271,10 @@ def semantic_segmentation(
         out = fusion.collect_predictions(classified, pc, indices=indices)
         how = (f"index path (tile-local device kNN, k={k} + torch "
                f"median/vote; pair path declined: {reason})")
+    elif path == "cache":
+        out = fusion.collect_predictions(classified, pc)
+        how = (f"host path (indices of {NBRS_CACHE}, no search + torch "
+               "median/vote)")
     else:
         out = fusion.collect_predictions(classified, pc, indices=prep)
         n_host = len(query_xyz)

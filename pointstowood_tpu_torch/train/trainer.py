@@ -256,9 +256,11 @@ def semantic_training(
     History rows match the reference CSV layout (trainer.py:256-267):
     [epoch, lr, train_loss, train_ba, train_f1, train_precision,
     train_recall, (+ test_ba, test_f1, test_precision, test_recall)].
-    Checkpoints are reference-layout ``.pth`` files: ``<wdir>/model/
-    <model_name>``, ``<wdir>/model/{ba,f1,precision}-<model_name>`` and
-    ``<wdir>/checkpoints/epoch_<n>.pth``."""
+    Checkpoints take ``model_name``'s format (a reference-layout
+    ``.pth``/``.pt``, else the JAX package's flax msgpack, e.g. ``.ckpt``):
+    ``<wdir>/model/<model_name>``, ``<wdir>/model/{ba,f1,precision}-
+    <model_name>`` and ``<wdir>/checkpoints/epoch_<n>`` with its suffix.
+    An existing ``<wdir>/model/<model_name>`` is resumed from."""
     dev = resolve_device(device)
     net = build_train_net(model_cfg, cfg.seed, device=dev)
     check_voxel_pack_range(max(tiling_cfg.grid_size), min(net.sa_resolutions))
@@ -403,7 +405,9 @@ def semantic_training(
         if epoch in set(int(c) for c in checkpoints):
             ckpt_dir = os.path.join(wdir, "checkpoints")
             os.makedirs(ckpt_dir, exist_ok=True)
-            save_checkpoint(os.path.join(ckpt_dir, f"epoch_{epoch}.pth"), net)
+            suffix = os.path.splitext(model_name)[1]
+            save_checkpoint(
+                os.path.join(ckpt_dir, f"epoch_{epoch}{suffix}"), net)
 
         # Early stopping: reproduced faithfully from trainer.py:279-293 —
         # the counter is re-initialized every epoch there, so the >=10

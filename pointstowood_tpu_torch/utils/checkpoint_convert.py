@@ -5,7 +5,8 @@ The port's ``Net.state_dict()`` has the reference Net's key layout
 (reference: pointstowood/src/model.py:204-224), so a reference ``.pth``
 state_dict loads with ``Net.load_state_dict``. ``state_dict_from_flax``
 turns the JAX package's variables (``{"params": ..., "batch_stats": ...}``
-nested dicts of numpy arrays) into that layout.
+nested dicts of numpy arrays) into that layout, and
+``flax_from_state_dict`` turns a state_dict back into those variables.
 
 Layout conversions (flax -> torch):
   Dense kernel (in, out)          -> Linear weight (out, in)
@@ -89,11 +90,22 @@ def _get(tree: dict, path: str):
     return node
 
 
+def _fp32_numpy(tree):
+    """The tree with every torch tensor leaf (a ``.ckpt``'s bf16 leaves)
+    as an fp32 numpy array."""
+    if isinstance(tree, dict):
+        return {k: _fp32_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", torch.float32).numpy()
+    return tree
+
+
 def state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """flax variables (nested dicts of arrays) -> reference-layout
     state_dict of fp32 torch tensors. Blocks absent from ``variables``
     are absent from the result (load with ``strict=False`` to keep the
     module's own values there)."""
+    variables = _fp32_numpy(variables)
     params = variables.get("params", {})
     batch_stats = variables.get("batch_stats", {})
 
@@ -125,3 +137,53 @@ def state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
                 sd[f"{torch_path}.num_batches_tracked"] = torch.tensor(0)
     return sd
 
+
+
+def _set(tree: dict, path: str, **leaves) -> None:
+    node = tree
+    for part in path.split("/"):
+        node = node.setdefault(part, {})
+    node.update({k: v for k, v in leaves.items() if v is not None})
+
+
+def flax_from_state_dict(state_dict) -> dict:
+    """Reference-layout state_dict -> the JAX package's variables
+    ``{"params": ..., "batch_stats": ...}`` as nested dicts of fp32 numpy
+    arrays: the inverse of ``state_dict_from_flax``, walking the same key
+    map, and the tree that the JAX package's
+    ``convert_torch_state_dict`` returns for the same state_dict (any
+    ``module.`` prefix stripped). Raises on a weight or statistic the key
+    map does not cover, so a ``.ckpt`` written from it is complete."""
+    sd = {}
+    for key, value in state_dict.items():
+        key = key[len("module."):] if key.startswith("module.") else key
+        if isinstance(value, torch.Tensor):
+            value = value.detach().to("cpu", torch.float32).numpy()
+        sd[key] = np.asarray(value, dtype=np.float32)
+    params: dict = {}
+    batch_stats: dict = {}
+    used = set()
+    for torch_path, (kind, flax_path) in build_key_map().items():
+        w = sd.get(f"{torch_path}.weight")
+        b = sd.get(f"{torch_path}.bias")
+        if w is None:
+            continue
+        used.update(f"{torch_path}.{n}" for n in (
+            "weight", "bias", "running_mean", "running_var",
+            "num_batches_tracked"))
+        if kind == "linear":
+            _set(params, flax_path, kernel=w.T, bias=b)
+        elif kind == "conv1d":
+            _set(params, flax_path, kernel=w[..., 0].T, bias=b)
+        elif kind == "depthwise":
+            _set(params, flax_path, dw_scale=w.reshape(-1), dw_bias=b)
+        elif kind == "bn":
+            _set(params, flax_path, scale=w, bias=b)
+            _set(batch_stats, flax_path,
+                 mean=sd.get(f"{torch_path}.running_mean"),
+                 var=sd.get(f"{torch_path}.running_var"))
+    missed = sorted(set(sd) - used)
+    if missed:
+        raise KeyError(f"no flax leaf for {missed[:5]} "
+                       f"({len(missed)} state_dict entries)")
+    return {"params": params, "batch_stats": batch_stats}

@@ -137,8 +137,9 @@ def test_load_file_matches_and_rejects_las(tmp_path):
     want, want_h = j_loader.load_file(path, additional_headers=True)
     assert got_h == want_h
     _assert_same(got, want)
-    with pytest.raises(RuntimeError, match="pointstowood_tpu"):
-        t_loader.load_file(str(tmp_path / "c.las"))
+    # .las is read now (tests/test_torch_las.py); compressed LAZ is not
+    with pytest.raises(RuntimeError, match="LASzip"):
+        t_loader.load_file(str(tmp_path / "c.laz"))
     with pytest.raises(ValueError, match="not recognised"):
         t_loader.load_file(str(tmp_path / "c.xyz"))
 

@@ -215,8 +215,8 @@ def test_cli_errors(runs, tmp_path):
     with pytest.raises(Exception, match="no input"):
         t_cli.main(["--model", runs["model"]], device="cpu")
     msgpack = tmp_path / "model.ckpt"
-    msgpack.write_bytes(b"\x80")
-    with pytest.raises(ValueError, match="save_torch_checkpoint"):
+    msgpack.write_bytes(b"\x80")  # an empty msgpack map: no variables
+    with pytest.raises(ValueError, match="not a flax variables checkpoint"):
         t_cli.main(["--point-cloud", runs["cloud"], "--model", str(msgpack)]
                    + FLAGS, device="cpu")
 
