@@ -83,6 +83,25 @@ exits non-zero and prints no final line):
                ``ops.interpolate.knn_interpolate_batched(k=16,
                method="fast")`` at FP1's shape: bit for bit against
                ``blend_plain``, timed.
+4d. attention -- the JAX package's attention variants at C=32 with seeded
+               weights: ``run_inference`` over the plot's tiles with
+               ``Net(attention_knn=True)`` and with
+               ``Net(attention_conv=True)`` (counts set to 0 before each;
+               ``knn_topk_dim`` must launch under ``attention_knn``, the
+               3-dim kernels under both); ``knn_topk_dim`` (kernel rows)
+               on the embeddings a B=8 x 16384 forward gives it, SA2
+               (D = 263) and SA3 (D = 519) at k = 32 and SA3 of
+               ``Net(k=64)`` / ``Net(k=128)`` with ``attention_knn``, bit
+               for bit against ``select_plain_dim``, timed against its
+               bound and a ``topk(cdist().square())`` yardstick; (phase
+               ``attention_adversarial``) ties, ties across the passes
+               past 64, NaN rows and columns, masks, fewer columns than k,
+               D = 1 and D = 37 (not a multiple of the kernel's chunk),
+               and D = 3 against ``knn_topk``, all bit for bit; each
+               variant's forward time and peak memory, one tile CPU vs
+               card (fp32: labels >= 99.5%, p99 |dp| <= 0.02; bf16
+               recorded), and ten train steps on a fixed batch (finite,
+               the loss falls; step ms, peak memory, launches a step).
 5. crosscheck -- one full tile through the port on the CPU (plain versions)
                and on the card (kernels): labels and probabilities agree.
 6. predict  -- the serving path: a synthetic ~1.2 M-point plot of trees
@@ -243,7 +262,11 @@ LANE_OPS_PER_S = 132 * 128 * 1.98e9
 SASS_KERNELS = {"knn": ("knn_topk_kernel", "knn_top2_kernel",
                         "knn_topk_above_kernel"),
                 "fusion": ("pair_select_kernel",),
-                "group_min": ("group_min_kernel",)}
+                "group_min": ("group_min_kernel",),
+                "knn_dim": ("knn_dim_kernel",)}
+# FMULs a unit of a kernel's work: a 3-dim distance pair squares dx, dy
+# and dz; knn_dim_kernel's unit is a pair and dimension, one square.
+FMULS_PER_UNIT = {"knn_dim_kernel": 1}
 
 RECORDS: list[dict] = []
 
@@ -266,7 +289,8 @@ def nvidia_smi_line() -> str:
 def demangle(names: list[str]) -> list[str]:
     """Kernel names as ``cu++filt`` (which ships with nvcc) gives them, up
     to the argument list: "void <unnamed>::knn_topk_kernel<(int)32>(const
-    float *, ...)" -> "knn_topk_kernel<32>"."""
+    float *, ...)" -> "knn_topk_kernel<32>", "knn_dim_kernel<(int)64,
+    (bool)1>(...)" -> "knn_dim_kernel<64, 1>"."""
     import re
 
     from pointstowood_tpu_torch.ops import build
@@ -276,7 +300,7 @@ def demangle(names: list[str]) -> list[str]:
         return names
     out = subprocess.run([filt], input="\n".join(names), capture_output=True,
                          text=True, timeout=60, check=True).stdout
-    return [re.sub(r"<unnamed>::|\((?:unsigned )?int\)", "", n)
+    return [re.sub(r"<unnamed>::|\((?:unsigned )?int\)|\(bool\)", "", n)
             .split("(")[0].removeprefix("void ") for n in out.splitlines()]
 
 
@@ -294,8 +318,9 @@ def sass_inner_loops(lib_path, prefixes, dump_dir) -> dict:
     head to its branch back (forward branches taken or not: it skips what
     a loop runs only now and then, such as an insertion, or a variant for
     rare rows), with their count by opcode, their distance pairs (FMUL /
-    3: dx, dy and dz are squared once a pair) and instructions a pair.
-    ``per_pair`` of the kernel is its leanest loop's hot path's."""
+    3: dx, dy and dz are squared once a pair; for ``knn_dim_kernel`` the
+    pair-dimensions, FMUL / 1, ``FMULS_PER_UNIT``) and instructions a
+    pair. ``per_pair`` of the kernel is its leanest loop's hot path's."""
     import re
     from collections import Counter
 
@@ -372,7 +397,8 @@ def sass_inner_loops(lib_path, prefixes, dump_dir) -> dict:
         rec = []
         for start, end, span in inner:
             path = hot_path(span)
-            pairs = sum(o.split(".")[0] == "FMUL" for o in path) / 3
+            pairs = sum(o.split(".")[0] == "FMUL" for o in path) / \
+                FMULS_PER_UNIT.get(name.split("<")[0], 3)
             rec.append({"range": [hex(start), hex(end)],
                         "instructions": len(span),
                         "hot_path_instructions": len(path),
@@ -596,6 +622,353 @@ def earlier_blend_bwd(src_dir: str, d_y, idx, d2, tmask, n_src):
 # ---------------------------------------------------------------- data
 
 
+def attention_net(flags: dict, dev, k: int = 32, dtype=None):
+    """``ModelConfig(k=k)``'s Net (C=32, fast kNN, bf16 unless ``dtype``
+    says otherwise) with the JAX package's attention flags, which only
+    ``Net`` takes (as in JAX), and seeded weights loaded through
+    ``state_dict_from_flax``."""
+    import torch
+
+    from pointstowood_tpu_torch.config import ModelConfig
+    from pointstowood_tpu_torch.model import Net
+    from pointstowood_tpu_torch.utils.checkpoint_convert import (
+        state_dict_from_flax,
+    )
+
+    cfg = ModelConfig(k=k)
+    net = Net(num_classes=cfg.num_classes, channels=cfg.channels, k=cfg.k,
+              sa_resolutions=tuple(cfg.sa_resolutions),
+              stage_fractions=tuple(cfg.stage_fractions), fp_k=cfg.fp_k,
+              knn_method=cfg.knn_mode, voxel_priority=cfg.voxel_priority,
+              dtype=dtype or getattr(torch, cfg.compute_dtype), **flags)
+    net.load_state_dict(state_dict_from_flax(seeded_flax_variables(net,
+                                                                   SEED)))
+    return net.to(dev).eval()
+
+
+@contextlib.contextmanager
+def recorded_knn_dim(calls: list):
+    """Within it, every ``knn_topk_dim`` call of ``ops.knn.knn_masked``
+    appends its inputs (rows, cols, col_mask, k) to ``calls``."""
+    from pointstowood_tpu_torch.ops import knn
+
+    own = knn.knn_topk_dim
+
+    def record(rows, cols, col_mask, k):
+        calls.append((rows, cols, col_mask, k))
+        return own(rows, cols, col_mask, k)
+
+    knn.knn_topk_dim = record
+    try:
+        yield
+    finally:
+        knn.knn_topk_dim = own
+
+
+def adversarial_dim_cases(seed):
+    """``knn_topk_dim`` inputs that break a wrong selection, from numpy:
+    (name, rows (2, R, D), cols (2, C, D), mask (2, C), k); batch 1 of each
+    case is fully masked. Duplicated columns (exact ties, and rows placed
+    on columns) at D = 37 (not a multiple of the kernel's 16-dimension
+    chunk) with k = 32, 65 and 128 (ties across the passes' boundaries);
+    NaN rows and NaN column coordinates with masked columns at D = 263;
+    fewer valid columns than k; 1 and 17 rows; D = 1."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    base = rng.normal(size=(90, 37))
+    dup = np.repeat(base, 3, axis=0)[rng.permutation(270)]
+    rows = rng.normal(size=(2, 33, 37))
+    rows[:, :5] = dup[:5]
+    for k in (32, 65, 128):
+        cases.append((f"tied columns D=37, k={k}", rows, np.stack([dup, dup]),
+                      None, k))
+    cols = rng.normal(size=(2, 1000, 263))
+    cols[0, 7, 100] = np.nan
+    r = rng.normal(size=(2, 17, 263))
+    r[0, 3, 5] = np.nan
+    mask = rng.random((2, 1000)) >= 0.3
+    cases.append(("NaN rows and columns, masked, D=263, k=32", r, cols,
+                  mask, 32))
+    cases.append(("20 columns, k=32, D=519", rng.normal(size=(2, 1, 519)),
+                  rng.normal(size=(2, 20, 519)), None, 32))
+    cases.append(("D=1, k=8", rng.normal(size=(2, 40, 1)),
+                  rng.normal(size=(2, 300, 1)), None, 8))
+    out = []
+    for name, r, c, m, k in cases:
+        m = np.ones(c.shape[:2], bool) if m is None else m.copy()
+        m[1] = False
+        out.append((name, r.astype(np.float32), c.astype(np.float32), m, k))
+    return out
+
+
+def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
+    """Phase ``attention``: the JAX package's attention variants on the
+    card at C=32, B=8 x 16384, seeded weights.
+
+    * main path: ``run_inference`` over the plot's tiles with
+      ``Net(attention_knn=True)`` and with ``Net(attention_conv=True)``,
+      every count set to 0 just before each and read just after;
+      ``knn_topk_dim`` must launch under ``attention_knn`` (SA2 and SA3
+      of every forward), the 3-dim kernels under both;
+    * ``knn_topk_dim`` on the inputs that a B=8 x 16384 forward gives it
+      (recorded), at SA2 (D = 263) and SA3 (D = 519), k = 32, and at SA3
+      of ``Net(k=64)`` and ``Net(k=128)`` with ``attention_knn`` (one
+      forward each, counts set to 0 before it: 2 and 4 launches): bit for
+      bit against ``select_plain_dim``; its time, bound, plain version
+      and ``topk(cdist().square())`` yardstick; then the
+      adversarial cases (``adversarial_dim_cases``) and D = 3 against
+      ``knn_topk``, bit for bit;
+    * each variant's forward time and peak memory, and one tile CPU vs
+      card: in fp32 held to labels >= 99.5%, p99 |dp| <= 0.02; in bf16
+      recorded (under ``attention_knn`` the neighbour search runs in a
+      learned embedding of bf16 features, whose last bit differs between
+      the CPU's and the card's products, so the sets and all after them
+      differ by more than the 3-dim search's rounding);
+    * ten train steps of each variant on a fixed batch: finite, the loss
+      falls, step time, peak memory, launches a step."""
+    import torch
+
+    from pointstowood_tpu_torch.config import (
+        PredictConfig,
+        TilingConfig,
+        TrainConfig,
+    )
+    from pointstowood_tpu_torch.data.dataset import pad_tiles
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        knn_topk,
+        knn_topk_dim,
+        select_plain,
+        select_plain_dim,
+        topk_plan,
+    )
+    from pointstowood_tpu_torch.predict.predicter import (
+        forward_probs,
+        run_inference,
+    )
+    from pointstowood_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    full = [t.points for t in tiles if len(t) == 16384][:8]
+    batch = pad_tiles(full, 16384)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (batch.pos, batch.reflectance, batch.mask, batch.sf)]
+    variants = {"attention_knn": {"attention_knn": True},
+                "attention_conv": {"attention_conv": True}}
+    paths = {}
+    for name, flags in variants.items():
+        net = attention_net(flags, dev)
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_inference(tiles, net, PredictConfig(batch_size=8),
+                            TilingConfig(grid_size=(4.0,), min_pts=128,
+                                         max_pts=16384), device=dev)
+        run_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        n_pts = sum(len(t) for t in tiles)
+        if out.shape != (n_pts, 5) or not np.isfinite(out).all() \
+                or out[:, 4].min() < 0 or out[:, 4].max() > 1:
+            raise AssertionError(f"{name}: run_inference output malformed")
+        need = ["knn_topk", "knn_top2", "interp_blend"] + (
+            ["knn_topk_dim"] if "knn" in name else [])
+        for kname in need:
+            if launches[kname] == 0:
+                raise AssertionError(f"{name}: {kname} launched no time on "
+                                     "the main path")
+        paths[name] = {"net": net, "launches": launches, "run_s": run_s,
+                       "routes": net.stage_routes(16384)}
+
+    # ---- knn_topk_dim on the inputs of one B=8 x 16384 forward at k = 32,
+    # 64 and 128 (the counts of that forward are each row's launches)
+    src = "pointstowood_tpu_torch/csrc/knn_dim.cu"
+    pk = "pointstowood_tpu/ops/pallas_knn.py"
+    usage = {n: u for n, u in ptxas.items()
+             if n.startswith("knn_dim_kernel")}
+    cases = []
+    for kk in (32, 64, 128):
+        net = (paths["attention_knn"]["net"] if kk == 32 else
+               attention_net(variants["attention_knn"], dev, k=kk))
+        calls: list = []
+        knn_topk_dim.launches = 0
+        with recorded_knn_dim(calls):
+            forward_probs(net, *args)
+        torch.cuda.synchronize()
+        n_launch = knn_topk_dim.launches
+        if len(calls) != 2 or n_launch != 2 * topk_plan(kk)[1]:
+            raise AssertionError(f"attention_knn k={kk} forward: "
+                                 f"{len(calls)} knn_topk_dim calls, "
+                                 f"{n_launch} launches")
+        if kk == 32:
+            cases += [("knn_topk_dim SA2", calls[0], n_launch),
+                      ("knn_topk_dim SA3", calls[1], n_launch)]
+        else:
+            cases.append((f"knn_topk_dim SA3 k={kk}", calls[1], n_launch))
+            del net
+    for name, (r, c, cm, kk), n_launch in cases:
+        b, nr, nc, d = r.shape[0], r.shape[1], c.shape[1], r.shape[2]
+        call = functools.partial(knn_topk_dim, r, c, cm, kk)
+        d_k, i_k = call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_p, i_p = select_plain_dim(r, c, cm, kk)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = check_exact(name, d_k, i_k, d_p, i_p)
+        del d_p, i_p
+
+        def library():
+            d2 = torch.cdist(r, c).square()
+            d2.masked_fill_(~cm[:, None, :], math.inf)
+            return torch.topk(d2, kk, dim=-1, largest=False)
+
+        lib_ms = cuda_ms(library, reps=3, warmup=1)
+        pairs = float(b * nr * nc)
+        # 3 operations a pair and dimension (sub, mul, add; no FMA) at the
+        # FMA-free rate; inputs once, outputs once
+        bms, by = bound(3.0 * pairs * d,
+                        4 * b * (nr + nc) * d + b * nc + 8 * b * nr * kk,
+                        LANE_OPS_PER_S)
+        passes = topk_plan(kk)[1]
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda", "source": src,
+            "replaces": f"{pk}:399 (and {pk}:181, two-stage route), "
+                        "at D > 3",
+            "wrapper": "knn_topk_dim", "shape": [b, nr, nc, d, kk],
+            "max_abs_err": err, "ms": cuda_ms(call, reps=5),
+            "bracketed_ms": bracketed_ms(call, reps=5),
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "distance_pairs": pairs, "pair_dims": pairs * d,
+            "passes": passes, "library_ms": lib_ms,
+            "library_call": "torch.topk(torch.cdist(rows, cols).square(), "
+                            "masked)",
+            "launches": n_launch,
+            "launches_forward": n_launch,
+            "launches_path": f"one B=8 x 16384 forward of Net(k={kk}, "
+                             "attention_knn=True) (phase attention)",
+        })
+        emit("kernel", **rows[-1])
+    run_launches = paths["attention_knn"]["launches"]["knn_topk_dim"]
+    del cases, calls
+
+    # ---- adversarial cases, bit for bit
+    checked = []
+    for name, r, c, m, kk in adversarial_dim_cases(SEED):
+        r, c, m = (torch.from_numpy(a).to(dev) for a in (r, c, m))
+        d_k, i_k = knn_topk_dim(r, c, m, kk)
+        torch.cuda.synchronize()
+        check_exact(name, d_k, i_k, *select_plain_dim(r, c, m, kk))
+        checked.append(name)
+    r, c, cm = args[0][:, :2048].contiguous(), args[0], args[2]
+    d_k, i_k = knn_topk_dim(r, c, cm, 32)
+    d_3, i_3 = knn_topk(r, c, cm, 32)
+    torch.cuda.synchronize()
+    check_exact("knn_topk_dim D=3 vs knn_topk", d_k, i_k, d_3, i_3)
+    check_exact("knn_topk_dim D=3 vs select_plain", d_k, i_k,
+                *select_plain(r, c, cm, 32))
+    checked.append("D=3, 8 x 2048 x 16384, k=32: knn_topk and select_plain")
+    emit("attention_adversarial", cases=checked, result="bit for bit")
+
+    # ---- forward time, peak memory, one tile CPU vs card
+    one = pad_tiles([full[0]], 16384)
+    one_args = [torch.from_numpy(a) for a in
+                (one.pos, one.reflectance, one.mask, one.sf)]
+    m = one.mask[0]
+    for name, path in paths.items():
+        net = path["net"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p = forward_probs(net, *args)
+            torch.cuda.synchronize()
+            if i >= 2:
+                fwd.append((time.perf_counter() - t1) * 1e3)
+        live = p.float()[args[2]]
+        if not bool(torch.isfinite(live).all()):
+            raise AssertionError(f"{name}: non-finite probabilities")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        path.update(forward_ms=statistics.median(fwd), forward_ms_all=fwd,
+                    max_memory_gib=peak, mean_prob=float(live.mean()))
+        net32 = attention_net(variants[name], dev, dtype=torch.float32)
+        for dname, card_net in (("bfloat16", net), ("float32", net32)):
+            cpu_net = copy.deepcopy(card_net).to("cpu")
+            t1 = time.perf_counter()
+            p_cpu = forward_probs(cpu_net, *one_args)[0].float().numpy()
+            cpu_s = time.perf_counter() - t1
+            del cpu_net
+            p_gpu = forward_probs(card_net,
+                                  *(a.to(dev) for a in one_args))[0]
+            p_gpu = p_gpu.float().cpu().numpy()
+            agree = float(((p_cpu[m] >= 0.5) == (p_gpu[m] >= 0.5)).mean())
+            dp = np.abs(p_cpu[m] - p_gpu[m])
+            path[f"crosscheck_{dname}"] = {
+                "label_agreement": agree,
+                "p99_abs_dprob": float(np.quantile(dp, 0.99)),
+                "max_abs_dprob": float(dp.max()), "cpu_seconds": cpu_s}
+        del net32
+        check = path["crosscheck_float32"]
+        if check["label_agreement"] < 0.995 or check["p99_abs_dprob"] > 0.02:
+            raise AssertionError(f"{name}: CPU and card disagree on a tile "
+                                 f"in fp32: {check}")
+
+    # ---- train steps on a fixed batch
+    labels = torch.from_numpy((np.random.default_rng(SEED).random(
+        batch.mask.shape) < 0.3).astype(np.float32)).to(dev)
+    cfg = TrainConfig()
+    for name, flags in variants.items():
+        net = attention_net(flags, dev).train()
+        opt = trainer.make_optimizer(net, cfg)
+        step = trainer.make_train_step(net, opt, cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        lr = 1e-3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        times, losses, skipped = [], [], 0
+        for _ in range(10):
+            t0 = time.perf_counter()
+            loss, _, finite = step(*args, labels, lr, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            skipped += not finite
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        paths[name].update(
+            train_step_ms=statistics.median(times[1:]),
+            train_step_ms_all=times, train_losses=losses,
+            train_max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            train_launches_per_step={k: v / 10 for k, v in launches.items()
+                                     if v})
+        if skipped or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: non-finite train step")
+        if not min(losses[-3:]) < losses[0]:
+            raise AssertionError(f"{name}: the loss did not fall over ten "
+                                 f"steps on a fixed batch: {losses}")
+        if "knn" in name and launches["knn_topk_dim"] != 20:
+            raise AssertionError(f"{name}: {launches['knn_topk_dim']} "
+                                 "knn_topk_dim launches in ten steps, not "
+                                 "20")
+        del net, opt, step
+    for row in rows:
+        if row["wrapper"] == "knn_topk_dim":
+            row["launches_train_step"] = (
+                paths["attention_knn"]["train_launches_per_step"]
+                ["knn_topk_dim"] if row["shape"][-1] == 32 else 0)
+    emit("attention", nvidia_smi=smi, batch=[8, 16384], channels=32,
+         dtype="bfloat16", knn_topk_dim_run_inference_launches=run_launches,
+         knn_dim_ptxas=usage,
+         variants={name: {k: v for k, v in path.items() if k != "net"}
+                   for name, path in paths.items()},
+         seconds=time.perf_counter() - t_phase)
+    for path in paths.values():
+        del path["net"]
+    torch.cuda.empty_cache()
+
+
 def synthetic_tiles(seed: int,
                     sizes=(16384,) * 8 + (6000, 5500, 5000, 4500)):
     """A plot of trunk + crown trees, one tree per 4 m tile, of the given
@@ -631,8 +1004,9 @@ def synthetic_tiles(seed: int,
 
 def seeded_flax_variables(net, seed: int) -> dict:
     """Random weights in the JAX package's variable layout (nested dicts of
-    numpy arrays), shaped from the port's own modules: He-scaled linear
-    kernels, BatchNorm statistics near identity."""
+    numpy arrays), shaped from the port's own modules (the attention
+    variants' included): He-scaled linear kernels, BatchNorm statistics
+    and LayerNorm scales near identity."""
     from pointstowood_tpu_torch.utils.checkpoint_convert import build_key_map
 
     rng = np.random.default_rng(seed)
@@ -649,12 +1023,19 @@ def seeded_flax_variables(net, seed: int) -> dict:
     def normal(shape, scale):
         return (rng.normal(size=shape) * scale).astype(np.float32)
 
-    for tpath, (kind, fpath) in build_key_map().items():
+    flags = {"attention_knn": getattr(net, "attention_knn", False),
+             "attention_conv": getattr(net, "attention_conv", False)}
+    for tpath, (kind, fpath) in build_key_map(**flags).items():
         w = shapes[f"{tpath}.weight"]
         if kind in ("linear", "conv1d"):
             n_out, n_in = w[0], w[1]
             put(params, fpath, kernel=normal((n_in, n_out), np.sqrt(2 / n_in)),
                 bias=normal((n_out,), 0.05))
+        elif kind == "linear_nobias":
+            put(params, fpath,
+                kernel=normal((w[1], w[0]), np.sqrt(2 / w[1])))
+        elif kind == "layernorm":
+            put(params, fpath, scale=1 + normal(w, 0.1), bias=normal(w, 0.1))
         elif kind == "depthwise":
             put(params, fpath, dw_scale=1 + normal((w[0],), 0.1),
                 dw_bias=normal((w[0],), 0.05))
@@ -1974,7 +2355,8 @@ def floors_phase(rows, sass) -> None:
     """Phase ``floors``: the issue-rate floor of each row of the FMA-free
     selections and of ``group_min``, the least time the SMs need to issue
     the instructions of its inner loop's hot path (the build's SASS count a
-    pair, ``sass``) for its distance pairs at ``LANE_OPS_PER_S``.
+    pair, ``sass``) for its distance pairs at ``LANE_OPS_PER_S``
+    (``knn_topk_dim``: a pair-dimension, for its pair-dimensions).
     Arithmetic over a count, not a measurement: it stays out of the
     ``kernels`` line."""
     from pointstowood_tpu_torch.ops.knn_kernels import topk_instance
@@ -1984,21 +2366,27 @@ def floors_phase(rows, sass) -> None:
         return {"knn_topk": f"knn_topk_kernel<{topk_instance(last)}>",
                 "knn_top2": f"knn_top2_kernel<{row.get('lanes')}>",
                 "pair_select": f"pair_select_kernel<{last}>",
-                "group_min": f"group_min_kernel<{last}>"}[row["wrapper"]]
+                "group_min": f"group_min_kernel<{last}>",
+                "knn_topk_dim": f"knn_dim_kernel<{topk_instance(last)}, 0>",
+                }[row["wrapper"]]
+
+    floor_pass = {"knn_topk": "knn_topk_above_kernel<64>",
+                  "knn_topk_dim": "knn_dim_kernel<64, 1>"}
 
     floors = []
     for row in rows:
         if row["wrapper"] not in ("knn_topk", "knn_top2", "pair_select",
-                                  "group_min"):
+                                  "group_min", "knn_topk_dim"):
             continue
         kernel = kernel_of(row)
         per_pair = sass.get(kernel, {}).get("per_pair")
-        pairs = row["distance_pairs"]
+        pairs = row.get("pair_dims", row["distance_pairs"])
         passes = row.get("passes", 1)
         if passes > 1 and per_pair:
-            # pass 1 on knn_topk_kernel<64>, the others on the floor pass
-            above = sass.get("knn_topk_above_kernel<64>", {}).get("per_pair")
-            kernel += f" + {passes - 1} x knn_topk_above_kernel<64>"
+            # pass 1 on the K = 64 instance, the others on the floor pass
+            above_kernel = floor_pass[row["wrapper"]]
+            above = sass.get(above_kernel, {}).get("per_pair")
+            kernel += f" + {passes - 1} x {above_kernel}"
             per_pair = (per_pair + (passes - 1) * above) if above else None
         floors.append({
             "name": row["name"], "sass_kernel": kernel,
@@ -2748,6 +3136,7 @@ def main(argv=None) -> int:
         group_min,
         knn_top2,
         knn_topk,
+        knn_topk_dim,
         select_plain,
         top2_lanes,
         topk_plan,
@@ -2798,6 +3187,8 @@ def main(argv=None) -> int:
         earlier_knn_top2 = earlier_top2(compare_with)
         old_sass = {}
         for name, prefixes in SASS_KERNELS.items():
+            if name not in old:
+                continue
             old_sass.update(sass_inner_loops(
                 old[name], prefixes, os.path.join(sass_dir, "compared")))
         emit("build_compared", source=compare_with,
@@ -2973,7 +3364,7 @@ def main(argv=None) -> int:
     wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
                 "interp_blend": interp_blend}
     every_wrapper = {**wrappers, "pair_select": pair_select,
-                     "group_min": group_min,
+                     "group_min": group_min, "knn_topk_dim": knn_topk_dim,
                      "blend_bwd_lists": blend_bwd_lists,
                      "interp_blend_bwd": interp_blend_bwd}
     for fn in every_wrapper.values():
@@ -3114,6 +3505,10 @@ def main(argv=None) -> int:
          mean_prob=float(live128.mean()))
     del net128, p128
 
+    # ---- 4d. the attention variants (Net(attention_knn=True),
+    # Net(attention_conv=True)): knn_topk_dim and their main paths
+    attention_phase(dev, smi, tiles, rows, every_wrapper, ptxas)
+
     # ---- 5. one full tile on the CPU (plain versions) vs the card
     one = pad_tiles([full[0]], 16384)
     cpu_net = copy.deepcopy(net).to("cpu")
@@ -3155,7 +3550,7 @@ def main(argv=None) -> int:
     blend_bwd_rows(dev, rows, SEED, ptxas, compare_with)
     adversarial_bwd_phase(dev)
     for row in rows:
-        row["launches_forward"] = fwd_launches[row["wrapper"]]
+        row.setdefault("launches_forward", fwd_launches[row["wrapper"]])
         row["launches_forward_32768"] = fwd32_launches[row["wrapper"]]
     train_crosscheck(dev, SEED)
     train_wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
@@ -3165,7 +3560,7 @@ def main(argv=None) -> int:
     _, step_launches = train_step_phase(dev, smi, every_wrapper, SEED,
                                         required=train_wrappers)
     for row in rows:
-        row["launches_train_step"] = step_launches[row["wrapper"]]
+        row.setdefault("launches_train_step", step_launches[row["wrapper"]])
     for row in rows[n_fwd:]:
         row["launches"] = step_launches[row["wrapper"]]
     for row in rows:

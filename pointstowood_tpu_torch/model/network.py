@@ -16,6 +16,14 @@ the SA stage also returns the transpose top-2 for its FP stage
 JAX package's two search routes). It applies the JAX package's rule and
 shape gates, so both packages take the same route at every shape.
 
+Attention variants, as the JAX ``Net``'s flags: ``attention_knn``
+replaces the SA2/SA3 neighbour search by ``ATSearchKNN`` (SA1 keeps its
+radius kNN), and those levels then take no transpose route: their FP
+stages search for themselves, as in the JAX package, whose attention
+stages ignore the transpose; ``attention_conv`` replaces each SA stage's
+PointConv by ``AttentivePointConv``, SA1's included, which then takes the
+stem's output as features (no per-edge stem).
+
 Two modes, as the JAX ``Net(training, use_running_average)``: the
 sampling mode (``training``: exactly 50% of the valid points at random,
 drawn from a caller-given ``torch.Generator``; otherwise voxel
@@ -32,6 +40,10 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from pointstowood_tpu_torch.model.attention import (
+    ATSearchKNN,
+    AttentivePointConv,
+)
 from pointstowood_tpu_torch.model.layers import (
     InvertedResidualBlock,
     MaskedBatchNorm,
@@ -62,20 +74,33 @@ FUSED_MAX_SOURCES_TRAIN = 4096
 class SAStage(nn.Module):
     """One set-abstraction stage: voxel-sample centres, gather fixed-k
     neighbourhoods, PointConv, inverted residual block (reference
-    SAModule, model.py:87-127)."""
+    SAModule, model.py:87-127). ``attention_knn`` searches the
+    neighbourhoods with ``ATSearchKNN`` (``atsearch``) where the stage has
+    no radius; ``attention_conv`` makes ``conv`` an
+    ``AttentivePointConv`` over the stage's input features (of
+    nn_channels[0] - 4 channels)."""
 
     def __init__(self, resolution: float, k: int, nn_channels: tuple,
                  out_features: int, use_radius: bool,
                  knn_method: str = "fast", voxel_priority: str = "hash",
-                 dtype=torch.float32):
+                 dtype=torch.float32, attention_knn: bool = False,
+                 attention_conv: bool = False):
         super().__init__()
         self.resolution = resolution
         self.k = k
         self.use_radius = use_radius
         self.knn_method = knn_method
         self.voxel_priority = voxel_priority
+        self.attention_conv = attention_conv
         self.reflectanceyesno = ReflectanceGate()
-        self.conv = PointConv(nn_channels, dtype)
+        in_channels = nn_channels[0] - 4
+        self.atsearch = (
+            ATSearchKNN(k, nn_channels[0] // 2, in_channels, knn_method)
+            if attention_knn and not use_radius else None)
+        self.conv = (
+            AttentivePointConv(in_channels,
+                               (in_channels,) + tuple(nn_channels[1:]), dtype)
+            if attention_conv else PointConv(nn_channels, dtype))
         self.residual_block = InvertedResidualBlock(out_features, dtype=dtype)
 
     def forward(self, x, pos3, refl, mask, sf, capacity: int,
@@ -84,7 +109,10 @@ class SAStage(nn.Module):
                 want_transpose: bool = False):
         """``capacity``: static number of centre slots (N / 2 of this
         stage's input by default). ``training`` samples the centres at
-        random from ``generator``, else takes voxel representatives."""
+        random from ``generator``, else takes voxel representatives. A
+        stage with ``atsearch`` returns no transpose (the JAX stage
+        ignores ``want_transpose`` there; ``Net.stage_routes`` never asks
+        it for one)."""
         refl = refl * self.reflectanceyesno(refl)
         if training:
             center_idx, center_valid = random_sample(
@@ -96,7 +124,12 @@ class SAStage(nn.Module):
         pos4 = torch.cat([pos3 / sf[:, None, None], refl[..., None]], dim=-1)
         centers = gather_rows(pos3, center_idx)
         transpose = None
-        if want_transpose:
+        if self.atsearch is not None:
+            # the learned feature-space search takes unscaled positions
+            nbr_idx, nbr_valid = self.atsearch(
+                x, torch.cat([pos3, refl[..., None]], dim=-1), mask,
+                center_idx, center_valid)
+        elif want_transpose:
             nbr_idx, nbr_valid, t_idx, _, t_d2 = knn_topk_with_transpose(
                 centers, pos3, self.k, center_valid, mask)
             transpose = (t_idx, t_d2)
@@ -112,9 +145,15 @@ class SAStage(nn.Module):
             radius = (torch.full_like(sf, self.resolution * 2) / sf)[
                 :, None, None]
         ura = use_running_average
-        x = self.conv(None if stem_edge is not None else x, pos4, center_idx,
-                      nbr_idx, nbr_valid, center_valid, radius=radius,
-                      stem_edge=stem_edge, sf=sf, use_running_average=ura)
+        if self.attention_conv:
+            x = self.conv(x, pos4, center_idx, nbr_idx, nbr_valid,
+                          center_valid, radius=radius,
+                          use_running_average=ura)
+        else:
+            x = self.conv(None if stem_edge is not None else x, pos4,
+                          center_idx, nbr_idx, nbr_valid, center_valid,
+                          radius=radius, stem_edge=stem_edge, sf=sf,
+                          use_running_average=ura)
         x = self.residual_block(x, center_valid, ura)
         refl = torch.gather(refl, 1, center_idx)
         return x, centers, refl, center_valid, transpose
@@ -140,6 +179,8 @@ class Net(nn.Module):
     (num_classes == 1) or (B, N, num_classes). ``training`` selects random
     50% sampling (from ``generator``) and the training fused-route bound;
     ``use_running_average`` defaults to ``not training``.
+    ``attention_knn`` / ``attention_conv``: the JAX package's attention
+    variants (module docstring).
     """
 
     def __init__(self, num_classes: int = 1, channels: int = 32, k: int = 32,
@@ -147,6 +188,7 @@ class Net(nn.Module):
                  stage_fractions: Sequence[float] = (0.5, 0.5, 0.5),
                  fp_k: int = 2, knn_method: str = "fast",
                  voxel_priority: str = "hash", transpose_knn: bool = True,
+                 attention_knn: bool = False, attention_conv: bool = False,
                  dtype=torch.float32):
         super().__init__()
         c = channels
@@ -159,6 +201,8 @@ class Net(nn.Module):
         self.knn_method = knn_method
         self.voxel_priority = voxel_priority
         self.transpose_knn = transpose_knn
+        self.attention_knn = attention_knn
+        self.attention_conv = attention_conv
         self.dtype = dtype
         self.stem_mlp = RefMLP((3, c), dtype)
         self._sa_specs = [
@@ -171,7 +215,8 @@ class Net(nn.Module):
             setattr(self, f"sa{i + 1}_module", SAStage(
                 res, k, nn_ch, out_f, use_radius=use_rad,
                 knn_method=knn_method, voxel_priority=voxel_priority,
-                dtype=dtype))
+                dtype=dtype, attention_knn=attention_knn,
+                attention_conv=attention_conv))
         self.sa4_module = _Head((c * 16 + 3, c * 16, c * 16), dtype)
         self.fp4_module = _Head((c * 32, c * 24, c * 16), dtype)
         self.fp3_module = _Head((c * 24, c * 20, c * 16), dtype)
@@ -196,7 +241,9 @@ class Net(nn.Module):
         fused route takes up to 4096 sources in training and 2048
         otherwise; the transpose is wanted where the FP stage would gather
         anyway or has more than 2048 sources, and taken where the JAX
-        transpose kernel's shape gate admits it."""
+        transpose kernel's shape gate admits it. Under ``attention_knn``
+        levels 1-2 (SA2, SA3) search with ``ATSearchKNN`` and take no
+        transpose."""
         caps = self.capacities(n)
         src = [n] + caps[:-1]
         bound = FUSED_MAX_SOURCES_TRAIN if training else FUSED_MAX_SOURCES_EVAL
@@ -207,6 +254,7 @@ class Net(nn.Module):
             want_t = (self.fp_k == 2 and self.transpose_knn
                       and (not fused or caps[i] > 2048))
             if (want_t and self.knn_method == "fast"
+                    and not (self.attention_knn and i > 0)
                     and transpose_supported(caps[i], src[i], self.k)):
                 routes.append("transpose")
             else:
@@ -233,7 +281,8 @@ class Net(nn.Module):
             x, p, r, m, transposes[i] = stage(
                 x, p, r, m, sf, caps[i], training=training,
                 use_running_average=ura, generator=generator,
-                stem_edge=self.stem_mlp if i == 0 else None,
+                stem_edge=(self.stem_mlp
+                           if i == 0 and not self.attention_conv else None),
                 want_transpose=routes[i] == "transpose")
             xs.append(x)
             poss.append(p)

@@ -33,7 +33,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("knn", "interp", "fusion", "group_min")
+SOURCES = ("knn", "interp", "fusion", "group_min", "knn_dim")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -59,6 +59,10 @@ _SIGNATURES = {
     },
     "group_min": {
         "ptw_group_min": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "knn_dim": {
+        "ptw_knn_topk_dim": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _P],
     },
 }
 

@@ -17,7 +17,11 @@ Two methods:
   block-local groups of g strided sources, ``torch.topk`` over the group
   minima and ``member_index``; where it falls back to XLA's
   ``_approx_knn`` (small or unaligned N), ``knn_top2``/``knn_topk`` again:
-  they have no shape limit.
+  they have no shape limit. Points of D != 3 dimensions (``ATSearchKNN``'s
+  embedding) go to ``knn_topk_dim`` at every shape: the exact top-k by
+  the true D-dimensional d2, where the JAX kernels rank by a distance
+  whose cross term is truncated to the first four coordinates (ROADMAP.md
+  section 3).
 
 Return contract (both methods, as in the JAX package): idx is 0 where
 invalid, d2 is +inf where invalid, and valid is the query mask AND a finite
@@ -35,6 +39,7 @@ from pointstowood_tpu_torch.ops.knn_kernels import (
     group_min,
     knn_top2,
     knn_topk,
+    knn_topk_dim,
     member_index,
     supported,
 )
@@ -87,10 +92,10 @@ def knn_masked(query_pos: torch.Tensor, source_pos: torch.Tensor, k: int,
     """k nearest valid sources per query.
 
     Args:
-      query_pos: (B, Q, 3); source_pos: (B, N, 3) (cast to fp32).
+      query_pos: (B, Q, D); source_pos: (B, N, D) (cast to fp32).
       k: neighbours; query_mask (B, Q) / source_mask (B, N): bool.
-      method: "exact" (plain parity path) or "fast" (CUDA kernels, routed
-        by ``fast_route``).
+      method: "exact" (plain parity path) or "fast" (CUDA kernels: at
+        D = 3 routed by ``fast_route``, else ``knn_topk_dim``).
 
     Returns idx (B, Q, k) int64 (0 where invalid), d2 (B, Q, k) fp32
     (+inf where invalid), valid (B, Q, k) bool.
@@ -105,7 +110,9 @@ def knn_masked(query_pos: torch.Tensor, source_pos: torch.Tensor, k: int,
         idx, d2 = _exact_knn(q, s, smask, k_eff)
     elif method == "fast":
         q, s = q.contiguous(), s.contiguous()
-        if fast_route(n, k_eff) == "two_stage":
+        if s.shape[-1] != 3:
+            d2, idx = knn_topk_dim(q, s, smask, k_eff)
+        elif fast_route(n, k_eff) == "two_stage":
             idx, d2 = _two_stage_knn(q, s, smask, k_eff)
         elif k_eff == 2:
             d2, idx = knn_top2(q, s, smask)

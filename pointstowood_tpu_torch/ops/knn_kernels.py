@@ -1,13 +1,17 @@
 """k-nearest selection kernels (port of pointstowood_tpu/ops/pallas_knn.py).
 
-Three wrappers, each beside its plain PyTorch version:
+Four wrappers, each beside its plain PyTorch version:
 
 * ``knn_topk`` (CUDA ``ptw_knn_topk``, csrc/knn.cu) replaces the Pallas
   ``group_min_topk`` and the forward half of ``group_min_topk_t``;
 * ``knn_top2`` (CUDA ``ptw_knn_top2_split``) replaces the Pallas ``top2``
   and the transpose half of ``group_min_topk_t``;
 * ``group_min`` (CUDA ``ptw_group_min``, csrc/group_min.cu) replaces the
-  Pallas ``group_min``: the first stage of the two-stage fast kNN.
+  Pallas ``group_min``: the first stage of the two-stage fast kNN;
+* ``knn_topk_dim`` (CUDA ``ptw_knn_topk_dim``, csrc/knn_dim.cu) replaces
+  ``group_min_topk`` and ``group_min`` where the JAX fast kNN searches
+  D > 3 dimensions (``ATSearchKNN``'s embedding): the exact top-k by the
+  true D-dimensional d2 (``pair_d2_dim``, ``select_plain_dim``).
 
 The selections return the exact top-k by squared distance, ascending, ties
 to the lower column index, with the TRUE d2 (+inf for masked columns and
@@ -138,6 +142,9 @@ def member_index(gidx: torch.Tensor, slot: torch.Tensor, n: int,
 # --- plain versions ---------------------------------------------------------
 
 _CHUNK_ELEMS = 1 << 23  # distance-matrix elements per plain-version chunk
+# The D-dim plain version makes D passes over each chunk: a chunk that
+# stays in a CPU's caches keeps it quick there
+_DIM_CHUNK_ELEMS = 1 << 20
 
 
 def pair_d2(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -148,6 +155,19 @@ def pair_d2(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
         diff = rows[:, :, None, a] - cols[:, None, :, a]
         sq.append(diff * diff)
     return (sq[0] + sq[1]) + sq[2]
+
+
+def pair_d2_dim(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Squared distances rows (B, R, D) x cols (B, C, D) -> (B, R, C) in
+    ``knn_topk_dim``'s order: a left-to-right fp32 sum over d of
+    (r_d - c_d)^2, one rounding per operation (acc = acc + diff * diff,
+    from diff_0 * diff_0). At D = 3 it is ``pair_d2``'s float."""
+    diff = rows[:, :, None, 0] - cols[:, None, :, 0]
+    acc = diff * diff
+    for a in range(1, rows.shape[-1]):
+        torch.sub(rows[:, :, None, a], cols[:, None, :, a], out=diff)
+        acc += diff.mul_(diff)
+    return acc
 
 
 def select_plain(rows: torch.Tensor, cols: torch.Tensor,
@@ -173,16 +193,37 @@ def select_plain_above(rows: torch.Tensor, cols: torch.Tensor,
     return _select(rows, cols, col_mask, k, (floor_d2, floor_idx))
 
 
-def _select(rows, cols, col_mask, k, floor):
+def select_plain_dim(rows: torch.Tensor, cols: torch.Tensor,
+                     col_mask: torch.Tensor, k: int):
+    """Plain version of ``knn_topk_dim``: ``select_plain``'s contract
+    (stable ties to the lower column, a NaN distance as +inf, empty slots
+    (+inf, 0)) over rows (B, R, D) and cols (B, C, D) by
+    ``pair_d2_dim``."""
+    return _select(rows, cols, col_mask, k, None, pair_d2_dim,
+                   _DIM_CHUNK_ELEMS)
+
+
+def select_plain_dim_above(rows: torch.Tensor, cols: torch.Tensor,
+                           col_mask: torch.Tensor, k: int,
+                           floor_d2: torch.Tensor, floor_idx: torch.Tensor):
+    """Plain version of one pass of ``knn_topk_dim`` past k = 64: the k
+    smallest ``pair_d2_dim`` keys strictly above each row's floor key, as
+    ``select_plain_above``."""
+    return _select(rows, cols, col_mask, k, (floor_d2, floor_idx),
+                   pair_d2_dim, _DIM_CHUNK_ELEMS)
+
+
+def _select(rows, cols, col_mask, k, floor, dist=pair_d2,
+            chunk_elems=_CHUNK_ELEMS):
     b, n_rows, _ = rows.shape
     n_cols = cols.shape[1]
     kk = min(k, n_cols)
     out_d = torch.full((b, n_rows, k), math.inf, device=rows.device)
     out_i = torch.zeros((b, n_rows, k), dtype=torch.int32, device=rows.device)
-    step = max(1, _CHUNK_ELEMS // max(1, b * n_cols))
+    step = max(1, chunk_elems // max(1, b * n_cols))
     col_idx = torch.arange(n_cols, device=rows.device)
     for lo in range(0, n_rows, step):
-        d = pair_d2(rows[:, lo:lo + step], cols)
+        d = dist(rows[:, lo:lo + step], cols)
         keep = col_mask[:, None, :] & ~torch.isnan(d)
         if floor is not None:
             fd = floor[0][:, lo:lo + step, None]
@@ -274,9 +315,13 @@ def top2_lanes(b: int, n_rows: int) -> int:
     return TOP2_LANES[-1]
 
 
-def _check_inputs(rows, cols, col_mask, name):
-    if rows.dim() != 3 or rows.shape[-1] != 3 or cols.dim() != 3 \
-            or cols.shape[-1] != 3 or rows.shape[0] != cols.shape[0] \
+def _check_inputs(rows, cols, col_mask, name, dim=3):
+    """Raise unless rows (B, R, dim) and cols (B, C, dim) are f32 and
+    col_mask (B, C) bool, all on one device (dim None: any D >= 1, the
+    same for both)."""
+    d = rows.shape[-1] if dim is None else dim
+    if rows.dim() != 3 or rows.shape[-1] != d or cols.dim() != 3 \
+            or cols.shape[-1] != d or d < 1 or rows.shape[0] != cols.shape[0] \
             or tuple(col_mask.shape) != tuple(cols.shape[:2]):
         raise ValueError(f"{name}: bad shapes rows {tuple(rows.shape)} "
                          f"cols {tuple(cols.shape)} mask "
@@ -415,3 +460,47 @@ def group_min(rows: torch.Tensor, cols: torch.Tensor,
 
 
 group_min.launches = 0
+
+
+def knn_topk_dim(rows: torch.Tensor, cols: torch.Tensor,
+                 col_mask: torch.Tensor, k: int):
+    """Exact top-k nearest valid columns per row by the D-dimensional d2
+    (``pair_d2_dim``): rows (B, R, D) f32, cols (B, C, D) f32, col_mask
+    (B, C) bool -> (d2 (B, R, k) f32, idx (B, R, k) int32), with
+    ``select_plain_dim``'s contract. CUDA: the ``ptw_knn_topk_dim``
+    launches of ``topk_plan(k)``: one for k <= 64, else passes of K = 64,
+    each above the last slot of the pass before, written into its slice of
+    one (passes, B, R, 64) output (the first k slots kept); ``launches``
+    counts every pass."""
+    _check_inputs(rows, cols, col_mask, "knn_topk_dim", dim=None)
+    if rows.device.type == "cpu":
+        return select_plain_dim(rows, cols, col_mask, k)
+    if rows.device.type != "cuda":
+        raise RuntimeError(f"knn_topk_dim: no kernel for device "
+                           f"{rows.device}")
+    inst, passes = topk_plan(k)
+    lib = build.library("knn_dim")
+    rows, cols, col_mask = (t.contiguous() for t in (rows, cols, col_mask))
+    b, n_rows, n_cols, dim = (rows.shape[0], rows.shape[1], cols.shape[1],
+                              rows.shape[2])
+    out_d = torch.empty((passes, b, n_rows, inst), dtype=torch.float32,
+                        device=rows.device)
+    out_i = torch.empty((passes, b, n_rows, inst), dtype=torch.int32,
+                        device=rows.device)
+    if b and n_rows:
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        for r in range(passes):
+            prev = ((out_d[r - 1].data_ptr(), out_i[r - 1].data_ptr())
+                    if r else (None, None))
+            build.check(lib.ptw_knn_topk_dim(
+                rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(), *prev,
+                out_d[r].data_ptr(), out_i[r].data_ptr(), b, n_rows, n_cols,
+                dim, inst, stream), "knn_topk_dim")
+            knn_topk_dim.launches += 1
+    return (out_d.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
+            .contiguous(),
+            out_i.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
+            .contiguous())
+
+
+knn_topk_dim.launches = 0

@@ -69,18 +69,20 @@ class TrainState:
 def init_parameters(net: torch.nn.Module, generator: torch.Generator):
     """The reference's (torch's default) initialisation, drawn from
     ``generator``: Linear and Conv1d weights kaiming-uniform with
-    a = sqrt(5), biases uniform in +-1/sqrt(fan_in); BatchNorm at identity.
+    a = sqrt(5), biases (where a layer has one) uniform in
+    +-1/sqrt(fan_in); BatchNorm and LayerNorm at identity.
     Returns ``net``."""
     with torch.no_grad():
         for mod in net.modules():
             if isinstance(mod, (torch.nn.Linear, torch.nn.Conv1d)):
                 torch.nn.init.kaiming_uniform_(mod.weight, a=math.sqrt(5),
                                                generator=generator)
-                fan_in = mod.weight[0].numel()
-                bound = 1 / math.sqrt(fan_in) if fan_in > 0 else 0.0
-                torch.nn.init.uniform_(mod.bias, -bound, bound,
-                                       generator=generator)
-            elif isinstance(mod, torch.nn.BatchNorm1d):
+                if mod.bias is not None:
+                    fan_in = mod.weight[0].numel()
+                    bound = 1 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+                    torch.nn.init.uniform_(mod.bias, -bound, bound,
+                                           generator=generator)
+            elif isinstance(mod, (torch.nn.BatchNorm1d, torch.nn.LayerNorm)):
                 mod.reset_parameters()
     return net
 

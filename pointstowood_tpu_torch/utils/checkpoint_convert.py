@@ -13,6 +13,14 @@ Layout conversions (flax -> torch):
   Dense kernel (in, out)          -> Conv1d k=1 weight (out, in, 1)
   per-channel dw_scale (C,)       -> depthwise Conv1d weight (C, 1, 1)
   BN scale/bias + mean/var stats  -> weight/bias + running_mean/var
+  Dense(use_bias=False) kernel    -> bias-free Linear weight (out, in)
+  LayerNorm scale/bias            -> LayerNorm weight/bias
+
+The attention variants' variables (``Net(attention_knn=True)``'s
+``atsearch`` blending MLPs, ``Net(attention_conv=True)``'s attention
+convs) have entries of their own (``build_key_map``'s flags); the two
+converters walk the map with both, and a block absent from their input is
+absent from their output.
 """
 
 from __future__ import annotations
@@ -56,8 +64,13 @@ def _irb_entries(torch_prefix: str) -> Dict[str, Tuple[str, str]]:
     }
 
 
-def build_key_map() -> Dict[str, Tuple[str, str]]:
-    """torch module path -> (kind, flax path) for the reference Net."""
+def build_key_map(attention_knn: bool = False,
+                  attention_conv: bool = False) -> Dict[str, Tuple[str, str]]:
+    """torch module path -> (kind, flax path) for the reference Net, or
+    for ``Net(attention_knn=..., attention_conv=...)``: SA2/SA3's
+    ``atsearch.blending`` linears, and every SA stage's attention conv
+    (bias-free ``qkv_proj``, ``mlp``, ``out_proj``, the LayerNorm
+    ``norm``; its ``local_nn`` has PointConv's keys)."""
     m: Dict[str, Tuple[str, str]] = {}
     for k, (kind, path) in _mlp_entries("stem_mlp", 1).items():
         m[k] = (kind, f"stem_mlp/{path}")
@@ -65,6 +78,14 @@ def build_key_map() -> Dict[str, Tuple[str, str]]:
         sa = f"sa{i}_module"
         for k, (kind, path) in _mlp_entries(f"{sa}.conv.local_nn", 2).items():
             m[k] = (kind, f"{sa}/conv/local_nn/{path}")
+        if attention_conv:
+            for name in ("qkv_proj", "mlp", "out_proj"):
+                m[f"{sa}.conv.{name}"] = ("linear_nobias", f"{sa}/conv/{name}")
+            m[f"{sa}.conv.norm"] = ("layernorm", f"{sa}/conv/norm")
+        if attention_knn and i > 1:
+            for name in ("feat1", "feat2", "pos1", "pos2"):
+                m[f"{sa}.atsearch.blending.{name}"] = (
+                    "linear", f"{sa}/atsearch/blending/{name}")
         for k, (kind, path) in _irb_entries(f"{sa}.residual_block").items():
             m[k] = (kind, f"{sa}/residual_block/{path}")
         for fc in ("fc1", "fc2", "fc3"):
@@ -79,6 +100,10 @@ def build_key_map() -> Dict[str, Tuple[str, str]]:
     m["conv2"] = ("conv1d", "conv2")
     m["norm"] = ("bn", "norm")
     return m
+
+
+# Every entry of every variant: the converters take what their input holds.
+_FULL_MAP = build_key_map(attention_knn=True, attention_conv=True)
 
 
 def _get(tree: dict, path: str):
@@ -113,12 +138,17 @@ def state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
     sd: Dict[str, torch.Tensor] = {}
-    for torch_path, (kind, flax_path) in build_key_map().items():
+    for torch_path, (kind, flax_path) in _FULL_MAP.items():
         p = _get(params, flax_path)
         if p is None:
             continue
         if kind == "linear":
             sd[f"{torch_path}.weight"] = t(np.asarray(p["kernel"]).T)
+            sd[f"{torch_path}.bias"] = t(p["bias"])
+        elif kind == "linear_nobias":
+            sd[f"{torch_path}.weight"] = t(np.asarray(p["kernel"]).T)
+        elif kind == "layernorm":
+            sd[f"{torch_path}.weight"] = t(p["scale"])
             sd[f"{torch_path}.bias"] = t(p["bias"])
         elif kind == "conv1d":
             sd[f"{torch_path}.weight"] = t(np.asarray(p["kernel"]).T[..., None])
@@ -163,7 +193,7 @@ def flax_from_state_dict(state_dict) -> dict:
     params: dict = {}
     batch_stats: dict = {}
     used = set()
-    for torch_path, (kind, flax_path) in build_key_map().items():
+    for torch_path, (kind, flax_path) in _FULL_MAP.items():
         w = sd.get(f"{torch_path}.weight")
         b = sd.get(f"{torch_path}.bias")
         if w is None:
@@ -171,8 +201,10 @@ def flax_from_state_dict(state_dict) -> dict:
         used.update(f"{torch_path}.{n}" for n in (
             "weight", "bias", "running_mean", "running_var",
             "num_batches_tracked"))
-        if kind == "linear":
+        if kind in ("linear", "linear_nobias"):
             _set(params, flax_path, kernel=w.T, bias=b)
+        elif kind == "layernorm":
+            _set(params, flax_path, scale=w, bias=b)
         elif kind == "conv1d":
             _set(params, flax_path, kernel=w[..., 0].T, bias=b)
         elif kind == "depthwise":

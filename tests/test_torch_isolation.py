@@ -125,7 +125,11 @@ def test_kernel_wrappers_never_run_plain_on_cuda_tensors():
         interp_blend,
         interp_blend_bwd,
     )
-    from pointstowood_tpu_torch.ops.knn_kernels import knn_top2, knn_topk
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        knn_top2,
+        knn_topk,
+        knn_topk_dim,
+    )
 
     r = torch.zeros((1, 8, 3), device="meta")
     m = torch.ones((1, 8), dtype=torch.bool, device="meta")
@@ -133,6 +137,9 @@ def test_kernel_wrappers_never_run_plain_on_cuda_tensors():
         knn_topk(r, r, m, 4)
     with pytest.raises(RuntimeError):
         knn_top2(r, r, m)
+    r_dim = torch.zeros((1, 8, 263), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        knn_topk_dim(r_dim, r_dim, m, 4)
     with pytest.raises(RuntimeError):
         interp_blend(torch.zeros((1, 8, 8), device="meta"),
                      torch.zeros((1, 8, 2), dtype=torch.int32, device="meta"),
