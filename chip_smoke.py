@@ -5,11 +5,13 @@ NVIDIA GPU.
     python3 chip_smoke.py [--compare-with DIR] [--accuracy-epochs E]
 
 With ``--compare-with DIR`` (an earlier tree's ``knn.cu``,
-``fusion.cu``, ``group_min.cu`` and ``interp.cu``, with any header they
-include), ``knn_topk`` at SA1-SA3 (k = 32 and 64), ``knn_top2`` at its
-three shapes, ``pair_select`` over the plot's entries, ``group_min`` at
-its three shapes and the interpolation backward at FP3-FP1 are also timed
-with that tree's kernels, built by the port's own build
+``fusion.cu``, ``group_min.cu`` and ``interp.cu``, and ``knn_dim.cu``
+where it has one, with any header they include), ``knn_topk`` at SA1-SA3
+(k = 32 and 64), ``knn_top2`` at its three shapes, ``pair_select`` over
+the plot's entries, ``group_min`` at its three shapes, the interpolation
+backward at FP3-FP1 and ``knn_topk_dim`` at SA2/SA3 (as that tree's
+exhaustive scan, ``earlier_knn_dim``) are also timed with that tree's
+kernels, built by the port's own build
 (``build.build_all``) and loaded by ``earlier_library``, launched through
 the port's wrappers on the same inputs (an earlier ``knn_top2`` entry
 without a lane count through ``earlier_top2``, the earlier atomic
@@ -35,8 +37,11 @@ exits non-zero and prints no final line):
                registers and spills (``-Xptxas -v``), and the SASS
                instruction count by opcode of the inner loops of
                ``knn_topk_kernel``, ``knn_top2_kernel``,
-               ``pair_select_kernel`` and ``group_min_kernel``
-               (``cuobjdump -sass``; the dump goes to ``build/sass/``).
+               ``pair_select_kernel``, ``group_min_kernel``,
+               ``knn_dim_kernel`` and ``knn_dim_filter_kernel``
+               (``cuobjdump -sass``; the dump goes to ``build/sass/``);
+               the filter's SASS must hold tensor-core instructions
+               (HMMA / HGMMA, ``filter_tensor_core_ops``).
 3. kernel   -- each forward kernel at the shapes the canonical eval forward
                (B=8 tiles x 16384 points, C=32, bf16, fast kNN) gives it,
                held against its plain PyTorch version on the same CUDA
@@ -93,11 +98,18 @@ exits non-zero and prints no final line):
                (D = 263) and SA3 (D = 519) at k = 32 and SA3 of
                ``Net(k=64)`` / ``Net(k=128)`` with ``attention_knn``, bit
                for bit against ``select_plain_dim``, timed against its
-               bound and a ``topk(cdist().square())`` yardstick; (phase
+               bound and a ``topk(cdist().square())`` yardstick, each
+               launch kind timed (``split_ms``: filter, rescore,
+               exhaustive rows) and the filter's survivors and candidates
+               a row (``knn_topk_dim_survivors``); (phase
                ``attention_adversarial``) ties, ties across the passes
                past 64, NaN rows and columns, masks, fewer columns than k,
                D = 1 and D = 37 (not a multiple of the kernel's chunk),
-               and D = 3 against ``knn_topk``, all bit for bit; each
+               the filter's cases (``filter_cases``: cancellation at an
+               offset of 1e4, norms past fp32, subnormal coordinates,
+               duplicates at the k-th place; the last, 600 duplicates,
+               must send rows to the exhaustive scan), and D = 3 against
+               ``knn_topk``, all bit for bit; each
                variant's forward time and peak memory, one tile CPU vs
                card (fp32: labels >= 99.5%, p99 |dp| <= 0.02; bf16
                recorded), and ten train steps on a fixed batch (finite,
@@ -212,7 +224,8 @@ exits non-zero and prints no final line):
                labelled wood, or below 99% agreement of the routes.
 17. floors   -- each selection's and ``group_min``'s issue-rate floor:
                its distance pairs times the SASS hot path's instructions
-               a pair (phase 2) over the SMs' issue rate; arithmetic, kept
+               a pair (phase 2) over the SMs' issue rate (``knn_topk_dim``:
+               its filter's and its exhaustive scan's); arithmetic, kept
                out of the kernels line.
 18. the ``{"kernels": [...]}`` line (every CUDA kernel's rows), then the
    card's nvidia-smi line, then the final ``{"ok": true, "device":
@@ -263,10 +276,16 @@ SASS_KERNELS = {"knn": ("knn_topk_kernel", "knn_top2_kernel",
                         "knn_topk_above_kernel"),
                 "fusion": ("pair_select_kernel",),
                 "group_min": ("group_min_kernel",),
-                "knn_dim": ("knn_dim_kernel",)}
-# FMULs a unit of a kernel's work: a 3-dim distance pair squares dx, dy
-# and dz; knn_dim_kernel's unit is a pair and dimension, one square.
-FMULS_PER_UNIT = {"knn_dim_kernel": 1}
+                "knn_dim": ("knn_dim_kernel", "knn_dim_filter_kernel")}
+# The opcode that marks a kernel's distance loops (FMUL unless named) and
+# how many of it a unit of the kernel's work takes: a 3-dim distance pair
+# squares dx, dy and dz; knn_dim_kernel's unit is a pair and dimension,
+# one square; the filter's HMMA (mma.sync m16n8k8) is 1024 products of a
+# warp, 32 pair-dimensions a thread instruction.
+LOOP_OP = {"knn_dim_filter_kernel": "HMMA"}
+OPS_PER_UNIT = {"knn_dim_kernel": 1, "knn_dim_filter_kernel": 1 / 32}
+# Dense TF32 on the H100 SXM's tensor cores (NVIDIA data sheet)
+TF32_FLOPS = 495e12
 
 RECORDS: list[dict] = []
 
@@ -313,14 +332,17 @@ def sass_inner_loops(lib_path, prefixes, dump_dir) -> dict:
     branch back from the stubs that nvcc puts after the kernel's EXIT for
     a diverged warp, which a ``BRA.DIV`` jumps to, makes no loop; on the
     hot path a ``BRA.DIV`` falls through, as it does for a converged
-    warp). Per loop: its
+    warp; ``knn_dim_filter_kernel``'s loops hold HMMA, ``LOOP_OP``). Per
+    loop: its
     instructions, and those of its hot path, the shortest path from its
     head to its branch back (forward branches taken or not: it skips what
     a loop runs only now and then, such as an insertion, or a variant for
     rare rows), with their count by opcode, their distance pairs (FMUL /
     3: dx, dy and dz are squared once a pair; for ``knn_dim_kernel`` the
-    pair-dimensions, FMUL / 1, ``FMULS_PER_UNIT``) and instructions a
-    pair. ``per_pair`` of the kernel is its leanest loop's hot path's."""
+    pair-dimensions, FMUL / 1; for the filter HMMA x 32, ``OPS_PER_UNIT``)
+    and instructions a pair. ``per_pair`` of the kernel is its leanest
+    loop's hot path's; ``tensor_core_ops`` counts its HMMA / HGMMA
+    instructions."""
     import re
     from collections import Counter
 
@@ -383,13 +405,15 @@ def sass_inner_loops(lib_path, prefixes, dump_dir) -> dict:
         if not name.startswith(tuple(prefixes)):
             continue
         code = funcs[mangled]
+        base = name.split("<")[0]
+        marker = LOOP_OP.get(base, "FMUL")
         loops = []
         for end, ins in enumerate(code):
             if ins["target"] is None or ins["target"] > ins["addr"]:
                 continue
             span = [c for c in code[:end + 1] if c["addr"] >= ins["target"]]
             ops = {c["op"].split(".")[0] for c in span}
-            if "FMUL" in ops and "EXIT" not in ops:
+            if marker in ops and "EXIT" not in ops:
                 loops.append((span[0]["addr"], ins["addr"], span))
         inner = [lp for lp in loops
                  if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
@@ -397,8 +421,8 @@ def sass_inner_loops(lib_path, prefixes, dump_dir) -> dict:
         rec = []
         for start, end, span in inner:
             path = hot_path(span)
-            pairs = sum(o.split(".")[0] == "FMUL" for o in path) / \
-                FMULS_PER_UNIT.get(name.split("<")[0], 3)
+            pairs = sum(o.split(".")[0] == marker for o in path) / \
+                OPS_PER_UNIT.get(base, 3)
             rec.append({"range": [hex(start), hex(end)],
                         "instructions": len(span),
                         "hot_path_instructions": len(path),
@@ -407,7 +431,10 @@ def sass_inner_loops(lib_path, prefixes, dump_dir) -> dict:
                         "opcodes": dict(Counter(path).most_common())})
         out[name] = {"loops": rec,
                      "per_pair": min((r["per_pair"] for r in rec
-                                      if r["per_pair"]), default=None)}
+                                      if r["per_pair"]), default=None),
+                     "tensor_core_ops": sum(
+                         c["op"].startswith(("HMMA", "HGMMA"))
+                         for c in code)}
     return out
 
 
@@ -514,26 +541,27 @@ _EARLIER_BWD = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 def earlier_library(name: str, src_dir: str):
     """The library ``name`` built from ``src_dir`` (an earlier tree's
-    csrc) by ``build.build_all``, loaded with ctypes, with only the entry
-    points that the compare path launches declared: ``ptw_knn_topk`` and
-    the top-2 (``ptw_knn_top2_split`` or, in its place, ``ptw_knn_top2``),
-    ``ptw_pair_select``, ``ptw_group_min``, ``ptw_interp_blend_bwd``."""
+    csrc) by ``build.build_all``, loaded with ctypes, with the entry
+    points that the compare path launches declared: those of this tree
+    that it has (the port's wrappers launch them), and an earlier
+    thread-per-row ``ptw_knn_top2`` or atomic ``ptw_interp_blend_bwd``
+    where it has one."""
     from pointstowood_tpu_torch.ops import build
 
     key = (name, src_dir)
     if key not in _EARLIER_LIBS:
         path = build.build_all((name,), csrc=Path(src_dir))[name]
         lib = ctypes.CDLL(str(path))
-        entries = {"knn": ["ptw_knn_topk"], "fusion": ["ptw_pair_select"],
-                   "group_min": ["ptw_group_min"],
-                   "interp": ["ptw_interp_blend_bwd"]}[name]
+        # this tree's entry points where the earlier library has them,
+        # and the earlier atomic backward
+        entries = [fn for fn in build._SIGNATURES[name] if hasattr(lib, fn)]
         signatures = dict(build._SIGNATURES[name])
         signatures["ptw_interp_blend_bwd"] = _EARLIER_BWD
+        if hasattr(lib, "ptw_interp_blend_bwd"):
+            entries.append("ptw_interp_blend_bwd")
         if name == "knn" and not hasattr(lib, "ptw_knn_top2_split"):
             entries.append("ptw_knn_top2")
             signatures["ptw_knn_top2"] = _EARLIER_TOP2
-        elif name == "knn":
-            entries.append("ptw_knn_top2_split")
         for fn in entries:
             f = getattr(lib, fn)
             f.argtypes = signatures[fn]
@@ -591,16 +619,85 @@ def earlier_top2(src_dir: str):
         knn_kernels.knn_top2, lib.ptw_knn_top2, r, c, m, 2)
 
 
+def earlier_knn_dim(src_dir: str, r, c, m, k):
+    """A call of ``knn_topk_dim`` as the exhaustive-scan tree (an earlier
+    knn_dim.cu whose ``ptw_knn_topk_dim`` is the whole kernel) ran it: one
+    launch a pass of ``topk_plan(k)``, each later pass above the last slot
+    of the pass before; None where ``src_dir`` has no knn_dim.cu."""
+    import torch
+
+    from pointstowood_tpu_torch.ops import build
+    from pointstowood_tpu_torch.ops.knn_kernels import topk_plan
+
+    if not os.path.exists(os.path.join(src_dir, "knn_dim.cu")):
+        return None
+    lib = earlier_library("knn_dim", src_dir)
+    inst, passes = topk_plan(k)
+    b, n_rows, n_cols, dim = r.shape[0], r.shape[1], c.shape[1], r.shape[2]
+
+    def call():
+        out_d = torch.empty((passes, b, n_rows, inst), device=r.device)
+        out_i = torch.empty((passes, b, n_rows, inst), dtype=torch.int32,
+                            device=r.device)
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        for p in range(passes):
+            prev = ((out_d[p - 1].data_ptr(), out_i[p - 1].data_ptr())
+                    if p else (None, None))
+            build.check(lib.ptw_knn_topk_dim(
+                r.data_ptr(), c.data_ptr(), m.data_ptr(), *prev,
+                out_d[p].data_ptr(), out_i[p].data_ptr(), b, n_rows, n_cols,
+                dim, inst, stream), "earlier knn_topk_dim")
+        return out_d, out_i
+    return call
+
+
+def knn_dim_split(r, c, cm, k) -> dict:
+    """Device ms (``cuda_ms``) of each launch kind of one ``knn_topk_dim``
+    call on these inputs: the filter (prep and both sweeps), the rescore,
+    the exhaustive rows, and past k = 64 one floor pass."""
+    import torch
+
+    from pointstowood_tpu_torch.ops import build
+    from pointstowood_tpu_torch.ops import knn_kernels as kn
+
+    lib = build.library("knn_dim")
+    inst, passes = kn.topk_plan(k)
+    s = kn._dim_scratch(r, c)
+    out_d = torch.empty((2, r.shape[0], r.shape[1], inst), device=r.device)
+    out_i = torch.empty((2, r.shape[0], r.shape[1], inst),
+                        dtype=torch.int32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    split = {
+        "filter_ms": cuda_ms(lambda: kn._dim_filter(
+            lib, r, c, cm, s, inst, stream), reps=5),
+        "rescore_ms": cuda_ms(lambda: kn._dim_rescore(
+            lib, s, out_d[0], out_i[0], inst, stream), reps=5),
+        "exhaustive_ms": cuda_ms(lambda: kn._dim_exhaustive(
+            lib, r, c, cm, s, out_d[0], out_i[0], inst, stream), reps=5)}
+    if passes > 1:
+        split["floor_pass_ms"] = cuda_ms(lambda: build.check(
+            lib.ptw_knn_topk_dim(
+                r.data_ptr(), c.data_ptr(), cm.data_ptr(),
+                out_d[0].data_ptr(), out_i[0].data_ptr(),
+                out_d[1].data_ptr(), out_i[1].data_ptr(), r.shape[0],
+                r.shape[1], c.shape[1], r.shape[2], inst, stream),
+            "knn_topk_dim"), reps=3)
+    return split
+
+
 def earlier_blend_bwd(src_dir: str, d_y, idx, d2, tmask, n_src):
     """A call of an earlier tree's atomic interpolation backward,
     ``ptw_interp_blend_bwd`` (zero an fp32 (B, S, C) buffer, scatter with
     atomicAdd, cast), on the inputs ``interp_blend_bwd`` takes, as its
-    wrapper launched it (k <= 8)."""
+    wrapper launched it (k <= 8); None where that tree's interp.cu has
+    the gather instead."""
     import torch
 
     from pointstowood_tpu_torch.ops import build
 
     lib = earlier_library("interp", src_dir)
+    if not hasattr(lib, "ptw_interp_blend_bwd"):
+        return None  # the gather: the wrapper launches it
     b, n_tgt, c = d_y.shape
     idx = idx.to(torch.int32).contiguous()
 
@@ -701,7 +798,71 @@ def adversarial_dim_cases(seed):
     return out
 
 
-def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
+def filter_cases(seed, n_rows=24, n_cols=400):
+    """Inputs that test ``knn_topk_dim``'s certified filter, from numpy:
+    (name, rows (2, R, D), cols (2, C, D), mask (2, C), k) at D = 263 and
+    519 (SA2's and SA3's), k = 32: a standardised embedding (rows near
+    columns); the same offset by 1e4 (the expansion form cancels: every
+    column survives); magnitudes of 1e19-1e20 (squared norms overflow,
+    close pairs stay finite); subnormal coordinates (half the points
+    wholly, a third of every other point's dimensions); exact duplicates
+    tied at the k-th place (20 columns nearer, 30 copies of one point);
+    NaN rows and columns with a third of the columns masked. Then
+    ``DIM_CANDIDATES`` + 88 copies of one point at the k-th place of every
+    row (D = 263, 1200 columns): more survivors than a candidate list
+    holds, so the rows go to the exhaustive scan."""
+    from pointstowood_tpu_torch.ops.knn_kernels import DIM_CANDIDATES
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in (263, 519):
+        cols = rng.normal(size=(2, n_cols, d))
+        near = rng.choice(n_cols, n_rows, replace=False)
+        rows = cols[:, near] + 0.3 * rng.normal(size=(2, n_rows, d))
+        out.append((f"standardised D={d}", rows, cols, None))
+        out.append((f"offset 1e4 D={d}", rows + 1e4, cols + 1e4, None))
+        big = np.exp(rng.uniform(np.log(1e19), np.log(1e20), cols.shape))
+        big *= rng.choice([-1.0, 1.0], cols.shape)
+        out.append((f"magnitudes 1e19-1e20 D={d}",
+                    big[:, near] * (1 + 1e-6 * rng.normal(
+                        size=(2, n_rows, d))), big, None))
+        tiny_r, tiny_c = rows.copy(), cols.copy()
+        tiny_r[:, ::2] *= 1e-40
+        tiny_c[:, ::2] *= 1e-40
+        tiny_r[:, 1::2, ::3] *= 1e-40
+        tiny_c[:, 1::2, ::3] *= 1e-40
+        out.append((f"subnormal coordinates D={d}", tiny_r, tiny_c, None))
+        tied_r = rng.normal(size=(2, n_rows, d))
+        tied_c = rng.normal(size=(2, n_cols, d))
+        slots = rng.permutation(n_cols)
+        tied_c[:, slots[:20]] = tied_r[:, :1] + 0.1 * rng.normal(
+            size=(2, 20, d))
+        tied_c[:, slots[20:50]] = tied_r[:, :1] + 0.5 * rng.normal(
+            size=(2, 1, d))
+        out.append((f"duplicates tied at the k-th place D={d}", tied_r,
+                    tied_c, None))
+        nan_r, nan_c = rows.copy(), cols.copy()
+        nan_c[0, 7, 100] = np.nan
+        nan_c[1, 30, 0] = np.nan
+        nan_r[0, 3, 5] = np.nan
+        out.append((f"NaN rows and columns, masked, D={d}", nan_r, nan_c,
+                    rng.random((2, n_cols)) >= 1 / 3))
+    n_copy = DIM_CANDIDATES + 88
+    many_r = rng.normal(size=(2, 8, 263))
+    many_c = rng.normal(size=(2, 1200, 263))
+    slots = rng.permutation(1200)
+    many_c[:, slots[:10]] = many_r[:, :1] + 0.1 * rng.normal(size=(2, 10, 263))
+    many_c[:, slots[10:10 + n_copy]] = many_r[:, :1] + 0.5 * rng.normal(
+        size=(2, 1, 263))
+    out.append((f"{n_copy} duplicates at the k-th place, D=263", many_r,
+                many_c, None))
+    return [(name, r.astype(np.float32), c.astype(np.float32),
+             np.ones(c.shape[:2], bool) if m is None else m, 32)
+            for name, r, c, m in out]
+
+
+def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
+                    compare_with=None):
     """Phase ``attention``: the JAX package's attention variants on the
     card at C=32, B=8 x 16384, seeded weights.
 
@@ -714,9 +875,13 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
       (recorded), at SA2 (D = 263) and SA3 (D = 519), k = 32, and at SA3
       of ``Net(k=64)`` and ``Net(k=128)`` with ``attention_knn`` (one
       forward each, counts set to 0 before it: 2 and 4 launches): bit for
-      bit against ``select_plain_dim``; its time, bound, plain version
-      and ``topk(cdist().square())`` yardstick; then the
-      adversarial cases (``adversarial_dim_cases``) and D = 3 against
+      bit against ``select_plain_dim``; its time (in turns with the
+      ``compare_with`` tree's exhaustive scan where given) and each launch
+      kind's (``knn_dim_split``), the filter's survivors a row
+      (``knn_topk_dim_survivors``), its bound, plain version and
+      ``topk(cdist().square())`` yardstick; then the adversarial cases
+      (``adversarial_dim_cases``, the filter's ``filter_cases``, of which
+      the last must send rows to the exhaustive scan) and D = 3 against
       ``knn_topk``, bit for bit;
     * each variant's forward time and peak memory, and one tile CPU vs
       card: in fp32 held to labels >= 99.5%, p99 |dp| <= 0.02; in bf16
@@ -737,6 +902,7 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
     from pointstowood_tpu_torch.ops.knn_kernels import (
         knn_topk,
         knn_topk_dim,
+        knn_topk_dim_survivors,
         select_plain,
         select_plain_dim,
         topk_plan,
@@ -746,6 +912,8 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
         run_inference,
     )
     from pointstowood_tpu_torch.train import trainer
+
+    kinds = ("filter_launches", "rescore_launches", "exhaustive_launches")
 
     t_phase = time.perf_counter()
     full = [t.points for t in tiles if len(t) == 16384][:8]
@@ -759,6 +927,8 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
         net = attention_net(flags, dev)
         for fn in wrappers.values():
             fn.launches = 0
+        for kind in kinds:
+            setattr(knn_topk_dim, kind, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run_inference(tiles, net, PredictConfig(batch_size=8),
@@ -766,6 +936,11 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
                                          max_pts=16384), device=dev)
         run_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in wrappers.items()}
+        dim_kinds = {kind: getattr(knn_topk_dim, kind) for kind in kinds}
+        if any(n != launches["knn_topk_dim"] for n in dim_kinds.values()):
+            raise AssertionError(f"{name}: knn_topk_dim launch kinds "
+                                 f"{dim_kinds}, passes "
+                                 f"{launches['knn_topk_dim']}")
         n_pts = sum(len(t) for t in tiles)
         if out.shape != (n_pts, 5) or not np.isfinite(out).all() \
                 or out[:, 4].min() < 0 or out[:, 4].max() > 1:
@@ -777,14 +952,20 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
                 raise AssertionError(f"{name}: {kname} launched no time on "
                                      "the main path")
         paths[name] = {"net": net, "launches": launches, "run_s": run_s,
+                       "knn_topk_dim_launch_kinds": dim_kinds,
                        "routes": net.stage_routes(16384)}
 
     # ---- knn_topk_dim on the inputs of one B=8 x 16384 forward at k = 32,
     # 64 and 128 (the counts of that forward are each row's launches)
     src = "pointstowood_tpu_torch/csrc/knn_dim.cu"
     pk = "pointstowood_tpu/ops/pallas_knn.py"
-    usage = {n: u for n, u in ptxas.items()
-             if n.startswith("knn_dim_kernel")}
+    usage = {n: u for n, u in ptxas.items() if n.startswith("knn_dim")}
+    filter_sass = {n: {"per_pair": v["per_pair"],
+                       "tensor_core_ops": v["tensor_core_ops"],
+                       "hot_path_opcodes": [lp["opcodes"]
+                                            for lp in v["loops"]]}
+                   for n, v in sass.items()
+                   if n.startswith("knn_dim_filter_kernel")}
     cases = []
     for kk in (32, 64, 128):
         net = (paths["attention_knn"]["net"] if kk == 32 else
@@ -810,6 +991,7 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
         call = functools.partial(knn_topk_dim, r, c, cm, kk)
         d_k, i_k = call()
         torch.cuda.synchronize()
+        survivors = knn_topk_dim_survivors(r, c, cm, kk)
         t0 = time.perf_counter()
         d_p, i_p = select_plain_dim(r, c, cm, kk)
         torch.cuda.synchronize()
@@ -824,20 +1006,37 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
 
         lib_ms = cuda_ms(library, reps=3, warmup=1)
         pairs = float(b * nr * nc)
-        # 3 operations a pair and dimension (sub, mul, add; no FMA) at the
-        # FMA-free rate; inputs once, outputs once
-        bms, by = bound(3.0 * pairs * d,
-                        4 * b * (nr + nc) * d + b * nc + 8 * b * nr * kk,
-                        LANE_OPS_PER_S)
+        # the least work of the design: one TF32 product of every pair
+        # (2 flops a pair and dimension at the tensor cores' rate), then
+        # the exact rescore of this run's survivors (3 FMA-free operations
+        # a pair and dimension); beside it the scan's bound, 3 FMA-free
+        # operations for every pair and dimension; inputs once, outputs
+        # once
+        tf32_ms = 2.0 * pairs * d / TF32_FLOPS * 1e3
+        fma_free_ms = 3.0 * pairs * d / LANE_OPS_PER_S * 1e3
+        ops_ms = tf32_ms + (3.0 * survivors["mean"] * b * nr * d
+                            / LANE_OPS_PER_S * 1e3)
+        bytes_ms = bound(0.0, 4 * b * (nr + nc) * d + b * nc
+                         + 8 * b * nr * kk)[0]
+        bms, by = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                   else (bytes_ms, "bytes"))
         passes = topk_plan(kk)[1]
+        earlier = (earlier_knn_dim(compare_with, r, c, cm, kk)
+                   if compare_with else None)
+        ms, compared_ms, turns = timed(call, compare_with if earlier
+                                       else None, earlier, reps=5)
+        split = knn_dim_split(r, c, cm, kk)
         rows.append({
             "name": name, "check": "ok", "route": "cuda", "source": src,
             "replaces": f"{pk}:399 (and {pk}:181, two-stage route), "
                         "at D > 3",
             "wrapper": "knn_topk_dim", "shape": [b, nr, nc, d, kk],
-            "max_abs_err": err, "ms": cuda_ms(call, reps=5),
+            "max_abs_err": err, "ms": ms, "compared_ms": compared_ms,
+            "turns_ms": turns, "split_ms": split,
             "bracketed_ms": bracketed_ms(call, reps=5),
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "tf32_bound_ms": tf32_ms, "fma_free_bound_ms": fma_free_ms,
+            "survivors": survivors,
             "distance_pairs": pairs, "pair_dims": pairs * d,
             "passes": passes, "library_ms": lib_ms,
             "library_call": "torch.topk(torch.cdist(rows, cols).square(), "
@@ -851,7 +1050,8 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
     run_launches = paths["attention_knn"]["launches"]["knn_topk_dim"]
     del cases, calls
 
-    # ---- adversarial cases, bit for bit
+    # ---- adversarial cases, bit for bit; the filter's cases with their
+    # survivors, the last one through the exhaustive scan
     checked = []
     for name, r, c, m, kk in adversarial_dim_cases(SEED):
         r, c, m = (torch.from_numpy(a).to(dev) for a in (r, c, m))
@@ -859,6 +1059,21 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
         torch.cuda.synchronize()
         check_exact(name, d_k, i_k, *select_plain_dim(r, c, m, kk))
         checked.append(name)
+    filter_checked = {}
+    cases_f = filter_cases(SEED)
+    for i, (name, r, c, m, kk) in enumerate(cases_f):
+        r, c, m = (torch.from_numpy(a).to(dev) for a in (r, c, m))
+        before = knn_topk_dim.exhaustive_launches
+        d_k, i_k = knn_topk_dim(r, c, m, kk)
+        torch.cuda.synchronize()
+        check_exact(name, d_k, i_k, *select_plain_dim(r, c, m, kk))
+        stats = knn_topk_dim_survivors(r, c, m, kk)
+        if i == len(cases_f) - 1 and (
+                stats["over_capacity"] == 0
+                or knn_topk_dim.exhaustive_launches == before):
+            raise AssertionError(f"{name}: no row went to the exhaustive "
+                                 f"scan: {stats}")
+        filter_checked[name] = stats
     r, c, cm = args[0][:, :2048].contiguous(), args[0], args[2]
     d_k, i_k = knn_topk_dim(r, c, cm, 32)
     d_3, i_3 = knn_topk(r, c, cm, 32)
@@ -867,7 +1082,8 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
     check_exact("knn_topk_dim D=3 vs select_plain", d_k, i_k,
                 *select_plain(r, c, cm, 32))
     checked.append("D=3, 8 x 2048 x 16384, k=32: knn_topk and select_plain")
-    emit("attention_adversarial", cases=checked, result="bit for bit")
+    emit("attention_adversarial", cases=checked,
+         filter_cases=filter_checked, result="bit for bit")
 
     # ---- forward time, peak memory, one tile CPU vs card
     one = pad_tiles([full[0]], 16384)
@@ -960,7 +1176,7 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas):
                 ["knn_topk_dim"] if row["shape"][-1] == 32 else 0)
     emit("attention", nvidia_smi=smi, batch=[8, 16384], channels=32,
          dtype="bfloat16", knn_topk_dim_run_inference_launches=run_launches,
-         knn_dim_ptxas=usage,
+         knn_dim_ptxas=usage, knn_dim_filter_sass=filter_sass,
          variants={name: {k: v for k, v in path.items() if k != "net"}
                    for name, path in paths.items()},
          seconds=time.perf_counter() - t_phase)
@@ -2356,10 +2572,14 @@ def floors_phase(rows, sass) -> None:
     selections and of ``group_min``, the least time the SMs need to issue
     the instructions of its inner loop's hot path (the build's SASS count a
     pair, ``sass``) for its distance pairs at ``LANE_OPS_PER_S``
-    (``knn_topk_dim``: a pair-dimension, for its pair-dimensions).
-    Arithmetic over a count, not a measurement: it stays out of the
-    ``kernels`` line."""
-    from pointstowood_tpu_torch.ops.knn_kernels import topk_instance
+    (``knn_topk_dim``: a pair-dimension, for its pair-dimensions: its
+    filter's two sweeps, and beside it the floor of the exhaustive scan
+    of every row). Arithmetic over a count, not a measurement: it stays
+    out of the ``kernels`` line."""
+    from pointstowood_tpu_torch.ops.knn_kernels import (
+        dim_padded,
+        topk_instance,
+    )
 
     def kernel_of(row):
         last = row["shape"][-1]
@@ -2394,6 +2614,24 @@ def floors_phase(rows, sass) -> None:
             "issue_floor_ms": (pairs * per_pair / LANE_OPS_PER_S * 1e3
                                if per_pair else None),
             "ms": row["ms"]})
+        if row["wrapper"] == "knn_topk_dim":
+            # the filter's units: pair-dimensions of the TF32 copy (D up
+            # to a multiple of 32) over its visits (every 128-column tile,
+            # and the first 8 again)
+            floors[-1]["name"] += " (exhaustive scan of every row)"
+            kernel = (f"knn_dim_filter_kernel"
+                      f"<{topk_instance(row['shape'][-1])}>")
+            per_pair = sass.get(kernel, {}).get("per_pair")
+            n_tiles = -(-row["shape"][2] // 128)
+            units = (row["distance_pairs"] * dim_padded(row["shape"][3], 32)
+                     * (n_tiles + min(8, n_tiles)) / n_tiles)
+            floors.append({
+                "name": row["name"] + " (filter)",
+                "sass_kernel": kernel, "distance_pairs": units,
+                "instructions_per_pair": per_pair,
+                "issue_floor_ms": (units * per_pair / LANE_OPS_PER_S * 1e3
+                                   if per_pair else None),
+                "ms": row["split_ms"]["filter_ms"]})
     emit("floors", rate_per_s=LANE_OPS_PER_S, rows=floors)
 
 
@@ -3096,16 +3334,18 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--compare-with", metavar="DIR",
         help="a directory holding an earlier tree's knn.cu, fusion.cu, "
-             "group_min.cu and interp.cu (with their headers): its "
-             "knn_topk, knn_top2, pair_select, group_min and interpolation "
-             "backward are timed in turns with the current ones at the same "
-             "shapes")
+             "group_min.cu and interp.cu, and knn_dim.cu where it has one "
+             "(with their headers): its knn_topk, knn_top2, pair_select, "
+             "group_min, interpolation backward and knn_topk_dim are timed "
+             "in turns with the current ones at the same shapes")
     parser.add_argument(
         "--accuracy-epochs", type=int, default=ACCURACY_EPOCHS,
         help="epochs of the accuracy phase's C=32 training (the reference "
              "script's are 50)")
     opts = parser.parse_args(argv)
-    compare_with = opts.compare_with
+    # every phase runs in another working directory (below)
+    compare_with = (os.path.abspath(opts.compare_with) if opts.compare_with
+                    else None)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3175,15 +3415,24 @@ def main(argv=None) -> int:
     for name, prefixes in SASS_KERNELS.items():
         sass.update(sass_inner_loops(paths[name], prefixes, sass_dir))
     ptxas = ptxas_usage(log.getvalue())
+    tensor_ops = {n: v["tensor_core_ops"] for n, v in sass.items()
+                  if n.startswith("knn_dim_filter_kernel")}
+    if not tensor_ops or not all(tensor_ops.values()):
+        raise AssertionError(f"knn_dim_filter_kernel: no HMMA / HGMMA in "
+                             f"its SASS: {tensor_ops}")
     emit("build", seconds=time.perf_counter() - t0,
+         filter_tensor_core_ops=tensor_ops,
          sources=[f"pointstowood_tpu_torch/csrc/{n}.cu"
                   for n in build.SOURCES],
          ptxas=ptxas, sass_inner_loops=sass)
     earlier_knn_top2 = None
     if compare_with:
         t0 = time.perf_counter()
-        old = build.build_all(("knn", "fusion", "group_min", "interp"),
-                              csrc=Path(compare_with))
+        old = build.build_all(
+            ("knn", "fusion", "group_min", "interp")
+            + (("knn_dim",) if os.path.exists(
+                os.path.join(compare_with, "knn_dim.cu")) else ()),
+            csrc=Path(compare_with))
         earlier_knn_top2 = earlier_top2(compare_with)
         old_sass = {}
         for name, prefixes in SASS_KERNELS.items():
@@ -3507,7 +3756,8 @@ def main(argv=None) -> int:
 
     # ---- 4d. the attention variants (Net(attention_knn=True),
     # Net(attention_conv=True)): knn_topk_dim and their main paths
-    attention_phase(dev, smi, tiles, rows, every_wrapper, ptxas)
+    attention_phase(dev, smi, tiles, rows, every_wrapper, ptxas, sass,
+                    compare_with)
 
     # ---- 5. one full tile on the CPU (plain versions) vs the card
     one = pad_tiles([full[0]], 16384)

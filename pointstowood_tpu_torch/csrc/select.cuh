@@ -153,6 +153,17 @@ struct WarpSelect {
   // keys are queued or a lane's queue could not take another group.
   template <int U>
   __device__ __forceinline__ void add(const float (&d2)[U], int col) {
+    int idx[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) idx[u] = col + 32 * u;
+    add_indexed(d2, idx);
+  }
+
+  // As add, with each lane's column index of every round given: round u
+  // offers (d2[u], idx[u]).
+  template <int U>
+  __device__ __forceinline__ void add_indexed(const float (&d2)[U],
+                                              const int (&idx)[U]) {
     static_assert(U < Q, "a queue must hold a group of rounds");
     bool near = false;
 #pragma unroll
@@ -167,7 +178,7 @@ struct WarpSelect {
     const int lane = lane_id();
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const Key key = make_key(d2[u], col + 32 * u);
+      const Key key = make_key(d2[u], idx[u]);
       bool admit = key < kth;
       if constexpr (Above) admit = admit && key > floor;
       total += __popc(__ballot_sync(kFull, admit));

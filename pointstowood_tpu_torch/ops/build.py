@@ -63,6 +63,9 @@ _SIGNATURES = {
     "knn_dim": {
         "ptw_knn_topk_dim": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _P],
+        "ptw_knn_dim_filter": [_P] * 13 + [_I] * 8 + [_P],
+        "ptw_knn_dim_rescore": [_P] * 8 + [_I] * 6 + [_P],
+        "ptw_knn_dim_exhaustive": [_P] * 6 + [_I] * 6 + [_P],
     },
 }
 

@@ -8,10 +8,13 @@ Four wrappers, each beside its plain PyTorch version:
   and the transpose half of ``group_min_topk_t``;
 * ``group_min`` (CUDA ``ptw_group_min``, csrc/group_min.cu) replaces the
   Pallas ``group_min``: the first stage of the two-stage fast kNN;
-* ``knn_topk_dim`` (CUDA ``ptw_knn_topk_dim``, csrc/knn_dim.cu) replaces
-  ``group_min_topk`` and ``group_min`` where the JAX fast kNN searches
-  D > 3 dimensions (``ATSearchKNN``'s embedding): the exact top-k by the
-  true D-dimensional d2 (``pair_d2_dim``, ``select_plain_dim``).
+* ``knn_topk_dim`` (CUDA ``ptw_knn_dim_filter``, ``ptw_knn_dim_rescore``,
+  ``ptw_knn_dim_exhaustive`` and ``ptw_knn_topk_dim``, csrc/knn_dim.cu)
+  replaces ``group_min_topk`` and ``group_min`` where the JAX fast kNN
+  searches D > 3 dimensions (``ATSearchKNN``'s embedding): the exact
+  top-k by the true D-dimensional d2 (``pair_d2_dim``,
+  ``select_plain_dim``), through a certified TF32 filter on the tensor
+  cores (plain arithmetic: ``filter_plain``) and an exact rescore.
 
 The selections return the exact top-k by squared distance, ascending, ties
 to the lower column index, with the TRUE d2 (+inf for masked columns and
@@ -462,16 +465,320 @@ def group_min(rows: torch.Tensor, cols: torch.Tensor,
 group_min.launches = 0
 
 
+# --- knn_topk_dim: the certified filter, the rescore, the exhaustive rows
+
+DIM_CANDIDATES = 512  # M: a row's candidate list; past it the exhaustive scan
+_FILTER_TILE = 128  # columns a filter tile (csrc/knn_dim.cu kFCols)
+_FILTER_PRIME = 8  # tiles that fill the lists before any is listed (kFPrime)
+
+
+def dim_padded(d: int, unit: int = 8) -> int:
+    """D rounded up to a multiple of ``unit``: Dp (8), the exact copy's
+    width, or the TF32 copy's (32, the filter's staged chunk)."""
+    return -(-d // unit) * unit
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32``: round to nearest, ties away
+    from zero, at the 13 dropped mantissa bits (the magnitude's bits plus
+    half of the last kept bit, then truncated; a carry may reach +-inf).
+    Non-finite values pass through."""
+    bits = x.contiguous().view(torch.int32)
+    out = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), out, x)
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """float64 s = a + b and its exact error e (Knuth's TwoSum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _directed(s: torch.Tensor, e, up: bool) -> torch.Tensor:
+    """The exact value s + e (float64 pair, |e| <= half an ulp of s)
+    rounded to fp32 up (``__f*_ru``) or down (``__f*_rd``)."""
+    f = s.float()
+    fd = f.double()
+    if up:
+        bump = (fd < s) | ((fd == s) & (e > 0))
+        return torch.where(bump, torch.nextafter(f, torch.full_like(
+            f, math.inf)), f)
+    bump = (fd > s) | ((fd == s) & (e < 0))
+    return torch.where(bump, torch.nextafter(f, torch.full_like(
+        f, -math.inf)), f)
+
+
+def _add(a, b, up):
+    return _directed(*_two_sum(a.double(), b.double()), up)
+
+
+def _mul(a, b, up):
+    return _directed(a.double() * b.double(), 0.0, up)  # exact in float64
+
+
+def _fma(a, b, c, up):
+    return _directed(*_two_sum(a.double() * b.double(), c.double()), up)
+
+
+def _sqrt_up(x):
+    f = torch.sqrt(x.double()).float()
+    xd = x.double()
+    f = torch.where(f.double() ** 2 < xd,
+                    torch.nextafter(f, torch.full_like(f, math.inf)), f)
+    lower = torch.nextafter(f, torch.full_like(f, -math.inf))
+    return torch.where((lower >= 0) & (lower.double() ** 2 >= xd), lower, f)
+
+
+def _f32(v: float) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _point_terms(n: torch.Tensor, dim: int, rows: bool):
+    """(Nhi, Nlo, Q) of points of fp32 squared norm n, as the kernel's
+    ``point_terms`` (csrc/knn_dim.cu: the certificate's per-point terms,
+    every operation rounded up or down as there); NaN where n is not
+    finite."""
+    g = _f32((dim + 6) * 2.0 ** -23)
+    tiny = _f32((dim + 32) * 2.0 ** -149)
+    a = _sqrt_up(_mul(_add(n, tiny, True), _add(_f32(1.0), 2 * g, True),
+                      True))
+    e = _add(_mul(g, _mul(a, a, True), True), tiny, True)
+    f = _mul(_mul(_sqrt_up(_f32(float(dim))), _f32(2.0 ** -124), True), a,
+             True)
+    k0 = _f32((dim + 8) * 2.0 ** -124 if rows else 0.0)
+    p = _add(_add(e, f, True), k0, True)
+    a_acc = _f32(2 * (dim + 8) * 2.0 ** -23)
+    c_s = _add(_f32(2.0 ** -10 + 2.0 ** -22),
+               _mul(_f32(1 + 2.0 ** -10 + 2.0 ** -22), a_acc, True), True)
+    q = _mul(_sqrt_up(2 * c_s), a, True)
+    bad = ~torch.isfinite(n)
+    nan = torch.full_like(n, math.nan)
+    return (torch.where(bad, nan, _add(n, p, True)),
+            torch.where(bad, nan, _add(n, -p, False)),
+            torch.where(bad, nan, q))
+
+
+def _div_up(a, b):
+    """a / b (fp32 tensors, b > 0) rounded up (``__fdiv_ru``)."""
+    f = (a.double() / b.double()).float()
+    return torch.where(f.double() * b.double() < a.double(),
+                       torch.nextafter(f, torch.full_like(f, math.inf)), f)
+
+
+def filter_factors(dim: int):
+    """(1 + g rounded up, 1 - g rounded down, their ratio rounded up),
+    g = (D + 2) 2^-23: the plain sum's relative error. The kernel keeps
+    U and L without these factors (p <= (1 + g) U, p >= (1 - g) L) and
+    holds L against tau times the ratio."""
+    g = _f32((dim + 2) * 2.0 ** -23)
+    up, dn = _add(_f32(1.0), g, True), _add(_f32(1.0), -g, False)
+    return up, dn, _div_up(up, dn)
+
+
+def filter_bounds_plain(rows: torch.Tensor, cols: torch.Tensor,
+                        seed: int = 0):
+    """Plain version of the filter's arithmetic (``knn_topk_dim``'s
+    certificate, csrc/knn_dim.cu), for tests and chip_smoke.py: TF32
+    products (``tf32_round`` of both sides) summed in fp32 in an order
+    shuffled by ``seed`` (the tensor cores' order is unspecified), squared
+    norms summed in fp32 in another shuffled order, and per pair, as the
+    kernel keeps them, U = (Nhi_r + Nhi_c - 2 s) + Q_r Q_c rounded up and
+    L = (Nlo_r + Nlo_c - 2 s) - Q_r Q_c rounded down. Returns (U, L),
+    each (B, R, C) f32: (1 + g) U >= every ``pair_d2_dim`` >= (1 - g) L
+    where the bounds are not NaN (``filter_factors``,
+    ``filter_p_bounds``)."""
+    dim = rows.shape[-1]
+    gen = torch.Generator().manual_seed(seed)
+
+    def norms(x):
+        n = torch.zeros(x.shape[:2])
+        for d in torch.randperm(dim, generator=gen).tolist():
+            n = n + x[..., d] * x[..., d]
+        return n
+
+    rt, ct = tf32_round(rows), tf32_round(cols)
+    s = torch.zeros(rows.shape[0], rows.shape[1], cols.shape[1])
+    for d in torch.randperm(dim, generator=gen).tolist():
+        s = s + rt[:, :, None, d] * ct[:, None, :, d]
+    nhi_r, nlo_r, q_r = (t[:, :, None] for t in _point_terms(
+        norms(rows), dim, True))
+    nhi_c, nlo_c, q_c = (t[:, None, :] for t in _point_terms(
+        norms(cols), dim, False))
+    two = _f32(-2.0)
+    u = _fma(q_r, q_c, _fma(two, s, _add(nhi_r, nhi_c, True), True), True)
+    lo = _fma(-q_r, q_c, _fma(two, s, _add(nlo_r, nlo_c, False), False),
+              False)
+    return u, lo
+
+
+def filter_p_bounds(u: torch.Tensor, lo: torch.Tensor, dim: int):
+    """The bounds on ``pair_d2_dim`` that the kernel's U and L stand for:
+    (1 + g) U rounded up, (1 - g) L rounded down."""
+    up, dn, _ = filter_factors(dim)
+    return _mul(u, up, True), _mul(lo, dn, False)
+
+
+def _lane_groups(v: torch.Tensor) -> torch.Tensor:
+    """(B, R, C) -> (B, R, T, 8, 16): tile, lane group (wn, t) of the
+    kernel's fragment layout (column c = 128 tile + 64 wn + 8 nt + 2 t +
+    j), the group's 16 columns of the tile; padded with +inf."""
+    b, n_rows, n_cols = v.shape
+    v = torch.nn.functional.pad(v, (0, (-n_cols) % _FILTER_TILE),
+                                value=math.inf)
+    v = v.view(b, n_rows, -1, 2, 8, 4, 2).permute(0, 1, 2, 3, 5, 4, 6)
+    return v.reshape(b, n_rows, v.shape[2], 8, 16)
+
+
+def _kept(k: int) -> tuple[int, int, int]:
+    """(K, KL, run) of the filter for k: each lane group keeps its KL =
+    min(8, max(1, K / 4)) smallest U; the running threshold takes the
+    largest of the groups' entry ``run`` = max(1, K / 8) - 1."""
+    inst = topk_instance(k)
+    return inst, min(8, max(1, inst // 4)), max(1, inst // 8) - 1
+
+
+def filter_tau_plain(u: torch.Tensor, col_mask: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """The filter's threshold tau (B, R) from U (B, R, C), as the kernel
+    takes it: each of a row's 8 lane groups (``_lane_groups``) keeps its
+    KL = min(8, max(1, K / 4)) smallest valid U >= 0 (K =
+    ``topk_instance(k)``), and tau is the K-th smallest of the 8 KL kept
+    values (+inf unless K of them are finite): an upper bound on the row's
+    K-th smallest ``pair_d2_dim``."""
+    inst, kl, _ = _kept(k)
+    v = torch.where(col_mask[:, None, :] & (u >= 0), u, math.inf)
+    g = _lane_groups(v).transpose(2, 3)
+    kept = g.reshape(*g.shape[:3], -1).sort(dim=-1).values[..., :kl]
+    return kept.reshape(*kept.shape[:2], -1).sort(dim=-1).values[
+        ..., inst - 1]
+
+
+def filter_candidates_plain(u: torch.Tensor, lo: torch.Tensor,
+                            col_mask: torch.Tensor, k: int,
+                            dim: int) -> torch.Tensor:
+    """The columns the kernel's single sweep lists (B, R, C) bool: it
+    visits tiles 0 .. T - 1, then 0 .. W - 1 again (W = min(8, T)); a
+    visit below T puts the tile's U into the lane groups' lists, a visit
+    from W on lists each valid column with !(L > tau_run), tau_run the
+    largest of the 8 groups' ``run``-th kept U after the visits before
+    (8 (run + 1) >= K distinct columns lie at or below it, so tau_run >=
+    tau; L is held against it times ``filter_factors``' ratio). A
+    superset of the survivors; the kernel's warps may see a sibling's list
+    of the same visit, so it can list fewer."""
+    inst, kl, run = _kept(k)
+    ratio = filter_factors(dim)[2]
+    valid = col_mask[:, None, :].expand_as(u)
+    v = _lane_groups(torch.where(valid & (u >= 0), u, math.inf))
+    ok = _lane_groups(torch.where(valid, 0.0, math.inf)) == 0
+    low = _lane_groups(lo)
+    b, n_rows, n_tiles = v.shape[:3]
+    listed = torch.zeros(low.shape, dtype=torch.bool)
+    kept = torch.full((b, n_rows, 8, kl), math.inf)
+    tau_run = torch.full((b, n_rows), math.inf)
+    prime = min(_FILTER_PRIME, n_tiles)
+    for visit in range(n_tiles + prime):
+        tile = visit % n_tiles
+        if visit >= prime:
+            listed[:, :, tile] = ok[:, :, tile] & ~(
+                low[:, :, tile] > _mul(tau_run, ratio, True)[..., None, None])
+        if visit < n_tiles:
+            kept = torch.cat([kept, v[:, :, tile]], -1).sort(
+                dim=-1).values[..., :kl]
+            tau_run = kept[..., run].max(dim=-1).values
+    out = listed.view(b, n_rows, n_tiles, 2, 4, 8, 2).permute(
+        0, 1, 2, 3, 5, 4, 6).reshape(b, n_rows, -1)
+    return out[..., :u.shape[-1]]
+
+
+def filter_plain(rows: torch.Tensor, cols: torch.Tensor,
+                 col_mask: torch.Tensor, k: int, seed: int = 0):
+    """Plain version of ``knn_topk_dim``'s filter: (U, L, tau, survivors
+    (B, R, C) bool), U, L and tau in the kernel's units (without the
+    factors of ``filter_factors``). A valid column survives unless
+    L > tau times the factors' ratio, so a NaN bound survives; the
+    selection over the survivors is ``select_plain_dim``'s."""
+    u, lo = filter_bounds_plain(rows, cols, seed)
+    tau = filter_tau_plain(u, col_mask, k)
+    ratio = filter_factors(rows.shape[-1])[2]
+    return u, lo, tau, col_mask[:, None, :] & ~(
+        lo > _mul(tau, ratio, True)[..., None])
+
+
+def _dim_scratch(rows: torch.Tensor, cols: torch.Tensor) -> dict:
+    """The filter's scratch: exact and TF32 copies padded to Dp, the
+    per-point terms, the candidate lists and their counts."""
+    b, n_rows, n_cols = rows.shape[0], rows.shape[1], cols.shape[1]
+    dp, dt = dim_padded(rows.shape[2]), dim_padded(rows.shape[2], 32)
+
+    def f32(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=rows.device)
+
+    return {"dp": dp, "dt": dt, "rows_x": f32(b, n_rows, dp),
+            "rows_t": f32(b, n_rows, dt), "rows_p": f32(b, n_rows, 4),
+            "cols_x": f32(b, n_cols, dp), "cols_t": f32(b, n_cols, dt),
+            "cols_p": f32(b, n_cols, 4),
+            "cand": f32(b, n_rows, DIM_CANDIDATES, dtype=torch.int32),
+            "cand_l": f32(b, n_rows, DIM_CANDIDATES),
+            "counts": f32(b, n_rows, dtype=torch.int32),
+            "tau": f32(b, n_rows)}
+
+
+def _dim_filter(lib, rows, cols, col_mask, s: dict, inst: int, stream):
+    """Prep and filter (``ptw_knn_dim_filter``): fills ``s``."""
+    b, n_rows, n_cols, dim = (rows.shape[0], rows.shape[1], cols.shape[1],
+                              rows.shape[2])
+    build.check(lib.ptw_knn_dim_filter(
+        rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
+        *(s[n].data_ptr() for n in ("rows_x", "rows_t", "rows_p", "cols_x",
+                                    "cols_t", "cols_p", "cand", "cand_l",
+                                    "counts", "tau")),
+        b, n_rows, n_cols, dim, s["dp"], s["dt"], inst, DIM_CANDIDATES,
+        stream), "knn_topk_dim filter")
+    knn_topk_dim.filter_launches += 1
+
+
+def _dim_rescore(lib, s: dict, out_d, out_i, inst: int, stream):
+    """The exact top-K of the rows whose candidates fit in M."""
+    b, n_rows, n_cols = (s["rows_x"].shape[0], s["rows_x"].shape[1],
+                         s["cols_x"].shape[1])
+    build.check(lib.ptw_knn_dim_rescore(
+        *(s[n].data_ptr() for n in ("rows_x", "cols_x", "cand", "cand_l",
+                                    "counts", "tau")),
+        out_d.data_ptr(), out_i.data_ptr(), b, n_rows, n_cols, s["dp"], inst,
+        DIM_CANDIDATES, stream),
+        "knn_topk_dim rescore")
+    knn_topk_dim.rescore_launches += 1
+
+
+def _dim_exhaustive(lib, rows, cols, col_mask, s: dict, out_d, out_i,
+                    inst: int, stream):
+    """The exhaustive scan of the rows with more than M candidates (the
+    device reads the counts: blocks without such a row exit)."""
+    b, n_rows, n_cols, dim = (rows.shape[0], rows.shape[1], cols.shape[1],
+                              rows.shape[2])
+    build.check(lib.ptw_knn_dim_exhaustive(
+        rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
+        s["counts"].data_ptr(), out_d.data_ptr(), out_i.data_ptr(), b,
+        n_rows, n_cols, dim, inst, DIM_CANDIDATES, stream),
+        "knn_topk_dim exhaustive")
+    knn_topk_dim.exhaustive_launches += 1
+
+
 def knn_topk_dim(rows: torch.Tensor, cols: torch.Tensor,
                  col_mask: torch.Tensor, k: int):
     """Exact top-k nearest valid columns per row by the D-dimensional d2
     (``pair_d2_dim``): rows (B, R, D) f32, cols (B, C, D) f32, col_mask
     (B, C) bool -> (d2 (B, R, k) f32, idx (B, R, k) int32), with
-    ``select_plain_dim``'s contract. CUDA: the ``ptw_knn_topk_dim``
-    launches of ``topk_plan(k)``: one for k <= 64, else passes of K = 64,
-    each above the last slot of the pass before, written into its slice of
-    one (passes, B, R, 64) output (the first k slots kept); ``launches``
-    counts every pass."""
+    ``select_plain_dim``'s contract. CUDA (csrc/knn_dim.cu), the passes
+    of ``topk_plan(k)``, each written into its slice of one
+    (passes, B, R, 64) output (the first k slots kept): the first a
+    certified TF32 tensor-core filter (``filter_launches``), the exact
+    rescore of each row's survivors (``rescore_launches``) and the
+    exhaustive scan of the rows with more than ``DIM_CANDIDATES``
+    (``exhaustive_launches``); past k = 64 each later pass an exhaustive
+    scan above the last slot of the pass before. ``launches`` counts the
+    passes. No launch waits for the host."""
     _check_inputs(rows, cols, col_mask, "knn_topk_dim", dim=None)
     if rows.device.type == "cpu":
         return select_plain_dim(rows, cols, col_mask, k)
@@ -489,13 +796,19 @@ def knn_topk_dim(rows: torch.Tensor, cols: torch.Tensor,
                         device=rows.device)
     if b and n_rows:
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        for r in range(passes):
-            prev = ((out_d[r - 1].data_ptr(), out_i[r - 1].data_ptr())
-                    if r else (None, None))
+        s = _dim_scratch(rows, cols)
+        _dim_filter(lib, rows, cols, col_mask, s, inst, stream)
+        _dim_rescore(lib, s, out_d[0], out_i[0], inst, stream)
+        _dim_exhaustive(lib, rows, cols, col_mask, s, out_d[0], out_i[0],
+                        inst, stream)
+        knn_topk_dim.launches += 1
+        for r in range(1, passes):
             build.check(lib.ptw_knn_topk_dim(
-                rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(), *prev,
+                rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
+                out_d[r - 1].data_ptr(), out_i[r - 1].data_ptr(),
                 out_d[r].data_ptr(), out_i[r].data_ptr(), b, n_rows, n_cols,
                 dim, inst, stream), "knn_topk_dim")
+            knn_topk_dim.exhaustive_launches += 1
             knn_topk_dim.launches += 1
     return (out_d.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
             .contiguous(),
@@ -504,3 +817,50 @@ def knn_topk_dim(rows: torch.Tensor, cols: torch.Tensor,
 
 
 knn_topk_dim.launches = 0
+knn_topk_dim.filter_launches = 0
+knn_topk_dim.rescore_launches = 0
+knn_topk_dim.exhaustive_launches = 0
+
+
+def knn_topk_dim_survivors(rows: torch.Tensor, cols: torch.Tensor,
+                           col_mask: torch.Tensor, k: int) -> dict:
+    """What ``knn_topk_dim``'s filter keeps on these inputs (its first
+    pass, K = ``topk_instance(k)``): {"rows"; "mean", "max": survivors a
+    row (the candidates with !(L > tau), which the rescore scores; over
+    the rows whose list holds all its candidates); "candidates_mean",
+    "candidates_max": candidates a row; "over_capacity": rows with more
+    candidates than ``DIM_CANDIDATES`` (the exhaustive scan's); and
+    "capacity"}. CUDA: the filter's launch and one read of a reduction of
+    its scratch; CPU: ``filter_plain`` and ``filter_candidates_plain``.
+    For tests and chip_smoke.py; the wrapper itself never reads a
+    count."""
+    _check_inputs(rows, cols, col_mask, "knn_topk_dim_survivors", dim=None)
+    inst = topk_instance(k)
+    if rows.device.type == "cpu":
+        u, lo, _, surv = filter_plain(rows, cols, col_mask, k)
+        counts = filter_candidates_plain(u, lo, col_mask, k,
+                                         rows.shape[-1]).sum(-1)
+        survivors = surv.sum(-1)
+    elif rows.device.type != "cuda":
+        raise RuntimeError(f"knn_topk_dim_survivors: no kernel for device "
+                           f"{rows.device}")
+    else:
+        rows, cols, col_mask = (t.contiguous() for t in
+                                (rows, cols, col_mask))
+        s = _dim_scratch(rows, cols)
+        _dim_filter(build.library("knn_dim"), rows, cols, col_mask, s, inst,
+                    torch.cuda.current_stream(rows.device).cuda_stream)
+        counts = s["counts"]
+        listed = torch.arange(DIM_CANDIDATES, device=rows.device) \
+            < counts[..., None]
+        survivors = (listed & ~(s["cand_l"] > s["tau"][..., None])).sum(-1)
+    fits = counts <= DIM_CANDIDATES
+    kept = survivors[fits].float()
+    mean, top, c_mean, c_max, over = torch.stack([
+        kept.mean() if kept.numel() else kept.new_tensor(math.nan),
+        kept.max() if kept.numel() else kept.new_tensor(math.nan),
+        counts.float().mean(), counts.max().float(),
+        (~fits).sum().float()]).tolist()
+    return {"rows": counts.numel(), "mean": mean, "max": top,
+            "candidates_mean": c_mean, "candidates_max": int(c_max),
+            "over_capacity": int(over), "capacity": DIM_CANDIDATES}

@@ -90,7 +90,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py",
+                          ROOT / "knn_dim_breakdown.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_import(path):
     """Also catches imports inside functions, which the import test above
@@ -129,6 +130,7 @@ def test_kernel_wrappers_never_run_plain_on_cuda_tensors():
         knn_top2,
         knn_topk,
         knn_topk_dim,
+        knn_topk_dim_survivors,
     )
 
     r = torch.zeros((1, 8, 3), device="meta")
@@ -140,6 +142,8 @@ def test_kernel_wrappers_never_run_plain_on_cuda_tensors():
     r_dim = torch.zeros((1, 8, 263), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         knn_topk_dim(r_dim, r_dim, m, 4)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        knn_topk_dim_survivors(r_dim, r_dim, m, 4)
     with pytest.raises(RuntimeError):
         interp_blend(torch.zeros((1, 8, 8), device="meta"),
                      torch.zeros((1, 8, 2), dtype=torch.int32, device="meta"),
