@@ -101,14 +101,18 @@ exits non-zero and prints no final line):
                bound and a ``topk(cdist().square())`` yardstick, each
                launch kind timed (``split_ms``: filter, rescore,
                exhaustive rows) and the filter's survivors and candidates
-               a row (``knn_topk_dim_survivors``); (phase
+               a row (``knn_topk_dim_survivors``), with the TF32 and
+               FMA-free bounds in the phase record; (phase
                ``attention_adversarial``) ties, ties across the passes
                past 64, NaN rows and columns, masks, fewer columns than k,
                D = 1 and D = 37 (not a multiple of the kernel's chunk),
-               the filter's cases (``filter_cases``: cancellation at an
-               offset of 1e4, norms past fp32, subnormal coordinates,
-               duplicates at the k-th place; the last, 600 duplicates,
-               must send rows to the exhaustive scan), and D = 3 against
+               the filter's cases at 400 and 2048 columns
+               (``filter_cases``: cancellation at an offset of 1e4, norms
+               past fp32, subnormal coordinates, duplicates at the k-th
+               place; the last, 600 duplicates, and the SA2 inputs with
+               600 duplicates at the k-th place of 4 rows a batch,
+               ``sa2_overflow_case``, must send rows to the exhaustive
+               scan in the call whose output is held), and D = 3 against
                ``knn_topk``, all bit for bit; each
                variant's forward time and peak memory, one tile CPU vs
                card (fp32: labels >= 99.5%, p99 |dp| <= 0.02; bf16
@@ -798,67 +802,105 @@ def adversarial_dim_cases(seed):
     return out
 
 
-def filter_cases(seed, n_rows=24, n_cols=400):
+def filter_cases(seed, n_rows=24, n_cols=(400, 2048)):
     """Inputs that test ``knn_topk_dim``'s certified filter, from numpy:
     (name, rows (2, R, D), cols (2, C, D), mask (2, C), k) at D = 263 and
-    519 (SA2's and SA3's), k = 32: a standardised embedding (rows near
-    columns); the same offset by 1e4 (the expansion form cancels: every
-    column survives); magnitudes of 1e19-1e20 (squared norms overflow,
-    close pairs stay finite); subnormal coordinates (half the points
-    wholly, a third of every other point's dimensions); exact duplicates
-    tied at the k-th place (20 columns nearer, 30 copies of one point);
-    NaN rows and columns with a third of the columns masked. Then
+    519 (SA2's and SA3's), k = 32, for each column count C of ``n_cols``
+    (2048: 16 tiles, so that columns are listed under the sweep's running
+    threshold as well as on its last visits; 400: the sweep's 8 priming
+    tiles and its last visits only, where every column of the cases below
+    that all survive fits a candidate list): a standardised embedding
+    (rows near columns); the same offset by 1e4 (the expansion form
+    cancels: every column survives); magnitudes of 1e19-1e20 (squared
+    norms overflow, close pairs stay finite); subnormal coordinates (half
+    the points wholly, a third of every other point's dimensions); exact
+    duplicates tied at the k-th place (20 columns nearer, 30 copies of one
+    point); NaN rows and columns with a third of the columns masked. Then
     ``DIM_CANDIDATES`` + 88 copies of one point at the k-th place of every
-    row (D = 263, 1200 columns): more survivors than a candidate list
+    row (D = 263, the largest C): more survivors than a candidate list
     holds, so the rows go to the exhaustive scan."""
     from pointstowood_tpu_torch.ops.knn_kernels import DIM_CANDIDATES
 
     rng = np.random.default_rng(seed)
     out = []
-    for d in (263, 519):
-        cols = rng.normal(size=(2, n_cols, d))
-        near = rng.choice(n_cols, n_rows, replace=False)
-        rows = cols[:, near] + 0.3 * rng.normal(size=(2, n_rows, d))
-        out.append((f"standardised D={d}", rows, cols, None))
-        out.append((f"offset 1e4 D={d}", rows + 1e4, cols + 1e4, None))
-        big = np.exp(rng.uniform(np.log(1e19), np.log(1e20), cols.shape))
-        big *= rng.choice([-1.0, 1.0], cols.shape)
-        out.append((f"magnitudes 1e19-1e20 D={d}",
-                    big[:, near] * (1 + 1e-6 * rng.normal(
-                        size=(2, n_rows, d))), big, None))
-        tiny_r, tiny_c = rows.copy(), cols.copy()
-        tiny_r[:, ::2] *= 1e-40
-        tiny_c[:, ::2] *= 1e-40
-        tiny_r[:, 1::2, ::3] *= 1e-40
-        tiny_c[:, 1::2, ::3] *= 1e-40
-        out.append((f"subnormal coordinates D={d}", tiny_r, tiny_c, None))
-        tied_r = rng.normal(size=(2, n_rows, d))
-        tied_c = rng.normal(size=(2, n_cols, d))
-        slots = rng.permutation(n_cols)
-        tied_c[:, slots[:20]] = tied_r[:, :1] + 0.1 * rng.normal(
-            size=(2, 20, d))
-        tied_c[:, slots[20:50]] = tied_r[:, :1] + 0.5 * rng.normal(
-            size=(2, 1, d))
-        out.append((f"duplicates tied at the k-th place D={d}", tied_r,
-                    tied_c, None))
-        nan_r, nan_c = rows.copy(), cols.copy()
-        nan_c[0, 7, 100] = np.nan
-        nan_c[1, 30, 0] = np.nan
-        nan_r[0, 3, 5] = np.nan
-        out.append((f"NaN rows and columns, masked, D={d}", nan_r, nan_c,
-                    rng.random((2, n_cols)) >= 1 / 3))
-    n_copy = DIM_CANDIDATES + 88
+    for n_c in n_cols:
+        for d in (263, 519):
+            at = f"D={d} C={n_c}"
+            cols = rng.normal(size=(2, n_c, d))
+            near = rng.choice(n_c, n_rows, replace=False)
+            rows = cols[:, near] + 0.3 * rng.normal(size=(2, n_rows, d))
+            out.append((f"standardised {at}", rows, cols, None))
+            out.append((f"offset 1e4 {at}", rows + 1e4, cols + 1e4, None))
+            big = np.exp(rng.uniform(np.log(1e19), np.log(1e20),
+                                     cols.shape))
+            big *= rng.choice([-1.0, 1.0], cols.shape)
+            out.append((f"magnitudes 1e19-1e20 {at}",
+                        big[:, near] * (1 + 1e-6 * rng.normal(
+                            size=(2, n_rows, d))), big, None))
+            tiny_r, tiny_c = rows.copy(), cols.copy()
+            tiny_r[:, ::2] *= 1e-40
+            tiny_c[:, ::2] *= 1e-40
+            tiny_r[:, 1::2, ::3] *= 1e-40
+            tiny_c[:, 1::2, ::3] *= 1e-40
+            out.append((f"subnormal coordinates {at}", tiny_r, tiny_c,
+                        None))
+            tied_r = rng.normal(size=(2, n_rows, d))
+            tied_c = rng.normal(size=(2, n_c, d))
+            slots = rng.permutation(n_c)
+            tied_c[:, slots[:20]] = tied_r[:, :1] + 0.1 * rng.normal(
+                size=(2, 20, d))
+            tied_c[:, slots[20:50]] = tied_r[:, :1] + 0.5 * rng.normal(
+                size=(2, 1, d))
+            out.append((f"duplicates tied at the k-th place {at}", tied_r,
+                        tied_c, None))
+            nan_r, nan_c = rows.copy(), cols.copy()
+            nan_c[0, 7, 100] = np.nan
+            nan_c[1, 30, 0] = np.nan
+            nan_r[0, 3, 5] = np.nan
+            out.append((f"NaN rows and columns, masked, {at}", nan_r, nan_c,
+                        rng.random((2, n_c)) >= 1 / 3))
+    n_copy, n_c = DIM_CANDIDATES + 88, max(n_cols)
     many_r = rng.normal(size=(2, 8, 263))
-    many_c = rng.normal(size=(2, 1200, 263))
-    slots = rng.permutation(1200)
+    many_c = rng.normal(size=(2, n_c, 263))
+    slots = rng.permutation(n_c)
     many_c[:, slots[:10]] = many_r[:, :1] + 0.1 * rng.normal(size=(2, 10, 263))
     many_c[:, slots[10:10 + n_copy]] = many_r[:, :1] + 0.5 * rng.normal(
         size=(2, 1, 263))
-    out.append((f"{n_copy} duplicates at the k-th place, D=263", many_r,
-                many_c, None))
+    out.append((f"{n_copy} duplicates at the k-th place, D=263 C={n_c}",
+                many_r, many_c, None))
     return [(name, r.astype(np.float32), c.astype(np.float32),
              np.ones(c.shape[:2], bool) if m is None else m, 32)
             for name, r, c, m in out]
+
+
+def sa2_overflow_case(rows, cols, col_mask, seed):
+    """The recorded SA2 inputs (the main path's shape) with
+    ``DIM_CANDIDATES`` + 88 exact copies of one point, 1e-3 times a
+    seeded normal vector away from the row, placed for each of rows 0,
+    R/4, R/2 and 3R/4 of every batch on columns drawn from ``seed`` (their
+    mask set): the copies take the k-th place of those rows, which then
+    have more candidates than a list holds, so the exhaustive scan serves
+    them while the rescore serves the rest."""
+    import torch
+
+    from pointstowood_tpu_torch.ops.knn_kernels import DIM_CANDIDATES
+
+    rng = np.random.default_rng(seed)
+    b, n_rows, n_cols, d = (rows.shape[0], rows.shape[1], cols.shape[1],
+                            rows.shape[2])
+    picks = [0, n_rows // 4, n_rows // 2, 3 * n_rows // 4]
+    n_copy = DIM_CANDIDATES + 88
+    step = torch.from_numpy(1e-3 * rng.normal(size=d).astype(np.float32))
+    step = step.to(rows.device)
+    cols, col_mask = cols.clone(), col_mask.clone()
+    for bi in range(b):
+        slots = torch.from_numpy(rng.permutation(n_cols)[
+            :n_copy * len(picks)].reshape(len(picks), n_copy))
+        for j, row in enumerate(picks):
+            at = slots[j].to(rows.device)
+            cols[bi, at] = rows[bi, row] + step
+            col_mask[bi, at] = True
+    return rows, cols, col_mask
 
 
 def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
@@ -881,7 +923,10 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
       (``knn_topk_dim_survivors``), its bound, plain version and
       ``topk(cdist().square())`` yardstick; then the adversarial cases
       (``adversarial_dim_cases``, the filter's ``filter_cases``, of which
-      the last must send rows to the exhaustive scan) and D = 3 against
+      the last, and ``sa2_overflow_case``, must send rows to the
+      exhaustive scan: ``knn_topk_dim`` and ``knn_topk_dim_survivors``
+      held bit for bit, the rows past M counted in the latter's own
+      call) and D = 3 against
       ``knn_topk``, bit for bit;
     * each variant's forward time and peak memory, and one tile CPU vs
       card: in fp32 held to labels >= 99.5%, p99 |dp| <= 0.02; in bf16
@@ -967,6 +1012,7 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
                    for n, v in sass.items()
                    if n.startswith("knn_dim_filter_kernel")}
     cases = []
+    dim_bounds = {}
     for kk in (32, 64, 128):
         net = (paths["attention_knn"]["net"] if kk == 32 else
                attention_net(variants["attention_knn"], dev, k=kk))
@@ -990,14 +1036,15 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
         b, nr, nc, d = r.shape[0], r.shape[1], c.shape[1], r.shape[2]
         call = functools.partial(knn_topk_dim, r, c, cm, kk)
         d_k, i_k = call()
+        d_s, i_s, survivors = knn_topk_dim_survivors(r, c, cm, kk)
         torch.cuda.synchronize()
-        survivors = knn_topk_dim_survivors(r, c, cm, kk)
         t0 = time.perf_counter()
         d_p, i_p = select_plain_dim(r, c, cm, kk)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = check_exact(name, d_k, i_k, d_p, i_p)
-        del d_p, i_p
+        check_exact(f"{name} (knn_topk_dim_survivors)", d_s, i_s, d_p, i_p)
+        del d_p, i_p, d_s, i_s
 
         def library():
             d2 = torch.cdist(r, c).square()
@@ -1035,7 +1082,6 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
             "turns_ms": turns, "split_ms": split,
             "bracketed_ms": bracketed_ms(call, reps=5),
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "tf32_bound_ms": tf32_ms, "fma_free_bound_ms": fma_free_ms,
             "survivors": survivors,
             "distance_pairs": pairs, "pair_dims": pairs * d,
             "passes": passes, "library_ms": lib_ms,
@@ -1047,11 +1093,14 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
                              "attention_knn=True) (phase attention)",
         })
         emit("kernel", **rows[-1])
+        dim_bounds[name] = {"tf32_bound_ms": tf32_ms,
+                            "fma_free_bound_ms": fma_free_ms}
     run_launches = paths["attention_knn"]["launches"]["knn_topk_dim"]
+    sa2 = cases[0][1][:3]
     del cases, calls
 
     # ---- adversarial cases, bit for bit; the filter's cases with their
-    # survivors, the last one through the exhaustive scan
+    # survivors, the last two through the exhaustive scan
     checked = []
     for name, r, c, m, kk in adversarial_dim_cases(SEED):
         r, c, m = (torch.from_numpy(a).to(dev) for a in (r, c, m))
@@ -1060,20 +1109,25 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
         check_exact(name, d_k, i_k, *select_plain_dim(r, c, m, kk))
         checked.append(name)
     filter_checked = {}
-    cases_f = filter_cases(SEED)
+    cases_f = [(name, *(torch.from_numpy(a).to(dev) for a in (r, c, m)), kk)
+               for name, r, c, m, kk in filter_cases(SEED)]
+    cases_f.append(("SA2 inputs, 600 duplicates at the k-th place of 4 "
+                    "rows a batch", *sa2_overflow_case(*sa2, SEED), 32))
+    del sa2
     for i, (name, r, c, m, kk) in enumerate(cases_f):
-        r, c, m = (torch.from_numpy(a).to(dev) for a in (r, c, m))
-        before = knn_topk_dim.exhaustive_launches
         d_k, i_k = knn_topk_dim(r, c, m, kk)
+        d_s, i_s, stats = knn_topk_dim_survivors(r, c, m, kk)
         torch.cuda.synchronize()
-        check_exact(name, d_k, i_k, *select_plain_dim(r, c, m, kk))
-        stats = knn_topk_dim_survivors(r, c, m, kk)
-        if i == len(cases_f) - 1 and (
-                stats["over_capacity"] == 0
-                or knn_topk_dim.exhaustive_launches == before):
+        d_p, i_p = select_plain_dim(r, c, m, kk)
+        check_exact(name, d_k, i_k, d_p, i_p)
+        check_exact(f"{name} (knn_topk_dim_survivors)", d_s, i_s, d_p, i_p)
+        # the rows past the list's capacity are the ones the exhaustive
+        # scan wrote in the call whose output was just held exact
+        if i >= len(cases_f) - 2 and stats["over_capacity"] == 0:
             raise AssertionError(f"{name}: no row went to the exhaustive "
                                  f"scan: {stats}")
         filter_checked[name] = stats
+    del cases_f
     r, c, cm = args[0][:, :2048].contiguous(), args[0], args[2]
     d_k, i_k = knn_topk_dim(r, c, cm, 32)
     d_3, i_3 = knn_topk(r, c, cm, 32)
@@ -1177,6 +1231,7 @@ def attention_phase(dev, smi, tiles, rows, wrappers, ptxas, sass,
     emit("attention", nvidia_smi=smi, batch=[8, 16384], channels=32,
          dtype="bfloat16", knn_topk_dim_run_inference_launches=run_launches,
          knn_dim_ptxas=usage, knn_dim_filter_sass=filter_sass,
+         knn_topk_dim_bounds=dim_bounds,
          variants={name: {k: v for k, v in path.items() if k != "net"}
                    for name, path in paths.items()},
          seconds=time.perf_counter() - t_phase)

@@ -735,7 +735,6 @@ def _dim_filter(lib, rows, cols, col_mask, s: dict, inst: int, stream):
                                     "counts", "tau")),
         b, n_rows, n_cols, dim, s["dp"], s["dt"], inst, DIM_CANDIDATES,
         stream), "knn_topk_dim filter")
-    knn_topk_dim.filter_launches += 1
 
 
 def _dim_rescore(lib, s: dict, out_d, out_i, inst: int, stream):
@@ -748,7 +747,6 @@ def _dim_rescore(lib, s: dict, out_d, out_i, inst: int, stream):
         out_d.data_ptr(), out_i.data_ptr(), b, n_rows, n_cols, s["dp"], inst,
         DIM_CANDIDATES, stream),
         "knn_topk_dim rescore")
-    knn_topk_dim.rescore_launches += 1
 
 
 def _dim_exhaustive(lib, rows, cols, col_mask, s: dict, out_d, out_i,
@@ -762,7 +760,47 @@ def _dim_exhaustive(lib, rows, cols, col_mask, s: dict, out_d, out_i,
         s["counts"].data_ptr(), out_d.data_ptr(), out_i.data_ptr(), b,
         n_rows, n_cols, dim, inst, DIM_CANDIDATES, stream),
         "knn_topk_dim exhaustive")
-    knn_topk_dim.exhaustive_launches += 1
+
+
+def _dim_launches(rows, cols, col_mask, k: int, counted: bool):
+    """``knn_topk_dim``'s launches on CUDA tensors: (d2, idx, the first
+    pass's scratch, or None where there is no row). ``counted`` adds each
+    launch to the wrapper's counts."""
+    inst, passes = topk_plan(k)
+    lib = build.library("knn_dim")
+    rows, cols, col_mask = (t.contiguous() for t in (rows, cols, col_mask))
+    b, n_rows, n_cols, dim = (rows.shape[0], rows.shape[1], cols.shape[1],
+                              rows.shape[2])
+    out_d = torch.empty((passes, b, n_rows, inst), dtype=torch.float32,
+                        device=rows.device)
+    out_i = torch.empty((passes, b, n_rows, inst), dtype=torch.int32,
+                        device=rows.device)
+    s = None
+    if b and n_rows:
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        s = _dim_scratch(rows, cols)
+        _dim_filter(lib, rows, cols, col_mask, s, inst, stream)
+        _dim_rescore(lib, s, out_d[0], out_i[0], inst, stream)
+        _dim_exhaustive(lib, rows, cols, col_mask, s, out_d[0], out_i[0],
+                        inst, stream)
+        if counted:
+            knn_topk_dim.filter_launches += 1
+            knn_topk_dim.rescore_launches += 1
+            knn_topk_dim.exhaustive_launches += 1
+            knn_topk_dim.launches += 1
+        for r in range(1, passes):
+            build.check(lib.ptw_knn_topk_dim(
+                rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
+                out_d[r - 1].data_ptr(), out_i[r - 1].data_ptr(),
+                out_d[r].data_ptr(), out_i[r].data_ptr(), b, n_rows, n_cols,
+                dim, inst, stream), "knn_topk_dim")
+            if counted:
+                knn_topk_dim.exhaustive_launches += 1
+                knn_topk_dim.launches += 1
+    return (out_d.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
+            .contiguous(),
+            out_i.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
+            .contiguous(), s)
 
 
 def knn_topk_dim(rows: torch.Tensor, cols: torch.Tensor,
@@ -785,35 +823,7 @@ def knn_topk_dim(rows: torch.Tensor, cols: torch.Tensor,
     if rows.device.type != "cuda":
         raise RuntimeError(f"knn_topk_dim: no kernel for device "
                            f"{rows.device}")
-    inst, passes = topk_plan(k)
-    lib = build.library("knn_dim")
-    rows, cols, col_mask = (t.contiguous() for t in (rows, cols, col_mask))
-    b, n_rows, n_cols, dim = (rows.shape[0], rows.shape[1], cols.shape[1],
-                              rows.shape[2])
-    out_d = torch.empty((passes, b, n_rows, inst), dtype=torch.float32,
-                        device=rows.device)
-    out_i = torch.empty((passes, b, n_rows, inst), dtype=torch.int32,
-                        device=rows.device)
-    if b and n_rows:
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        s = _dim_scratch(rows, cols)
-        _dim_filter(lib, rows, cols, col_mask, s, inst, stream)
-        _dim_rescore(lib, s, out_d[0], out_i[0], inst, stream)
-        _dim_exhaustive(lib, rows, cols, col_mask, s, out_d[0], out_i[0],
-                        inst, stream)
-        knn_topk_dim.launches += 1
-        for r in range(1, passes):
-            build.check(lib.ptw_knn_topk_dim(
-                rows.data_ptr(), cols.data_ptr(), col_mask.data_ptr(),
-                out_d[r - 1].data_ptr(), out_i[r - 1].data_ptr(),
-                out_d[r].data_ptr(), out_i[r].data_ptr(), b, n_rows, n_cols,
-                dim, inst, stream), "knn_topk_dim")
-            knn_topk_dim.exhaustive_launches += 1
-            knn_topk_dim.launches += 1
-    return (out_d.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
-            .contiguous(),
-            out_i.permute(1, 2, 0, 3).reshape(b, n_rows, -1)[..., :k]
-            .contiguous())
+    return _dim_launches(rows, cols, col_mask, k, counted=True)[:2]
 
 
 knn_topk_dim.launches = 0
@@ -823,20 +833,21 @@ knn_topk_dim.exhaustive_launches = 0
 
 
 def knn_topk_dim_survivors(rows: torch.Tensor, cols: torch.Tensor,
-                           col_mask: torch.Tensor, k: int) -> dict:
-    """What ``knn_topk_dim``'s filter keeps on these inputs (its first
-    pass, K = ``topk_instance(k)``): {"rows"; "mean", "max": survivors a
-    row (the candidates with !(L > tau), which the rescore scores; over
-    the rows whose list holds all its candidates); "candidates_mean",
-    "candidates_max": candidates a row; "over_capacity": rows with more
-    candidates than ``DIM_CANDIDATES`` (the exhaustive scan's); and
-    "capacity"}. CUDA: the filter's launch and one read of a reduction of
-    its scratch; CPU: ``filter_plain`` and ``filter_candidates_plain``.
-    For tests and chip_smoke.py; the wrapper itself never reads a
-    count."""
+                           col_mask: torch.Tensor, k: int):
+    """``knn_topk_dim``'s result and what its filter kept in that same
+    call (its first pass, K = ``topk_instance(k)``): (d2, idx, {"rows";
+    "mean", "max": survivors a row (the candidates with !(L > tau), which
+    the rescore scores; over the rows whose list holds all its
+    candidates); "candidates_mean", "candidates_max": candidates a row;
+    "over_capacity": rows with more candidates than ``DIM_CANDIDATES``,
+    which that call's exhaustive scan served; and "capacity"}). CUDA: the
+    wrapper's launches, not counted, and one read of a reduction of the
+    first pass's scratch; CPU: ``select_plain_dim``, ``filter_plain`` and
+    ``filter_candidates_plain``. For tests and chip_smoke.py; the wrapper
+    itself never reads a count."""
     _check_inputs(rows, cols, col_mask, "knn_topk_dim_survivors", dim=None)
-    inst = topk_instance(k)
     if rows.device.type == "cpu":
+        d2, idx = select_plain_dim(rows, cols, col_mask, k)
         u, lo, _, surv = filter_plain(rows, cols, col_mask, k)
         counts = filter_candidates_plain(u, lo, col_mask, k,
                                          rows.shape[-1]).sum(-1)
@@ -845,11 +856,7 @@ def knn_topk_dim_survivors(rows: torch.Tensor, cols: torch.Tensor,
         raise RuntimeError(f"knn_topk_dim_survivors: no kernel for device "
                            f"{rows.device}")
     else:
-        rows, cols, col_mask = (t.contiguous() for t in
-                                (rows, cols, col_mask))
-        s = _dim_scratch(rows, cols)
-        _dim_filter(build.library("knn_dim"), rows, cols, col_mask, s, inst,
-                    torch.cuda.current_stream(rows.device).cuda_stream)
+        d2, idx, s = _dim_launches(rows, cols, col_mask, k, counted=False)
         counts = s["counts"]
         listed = torch.arange(DIM_CANDIDATES, device=rows.device) \
             < counts[..., None]
@@ -861,6 +868,6 @@ def knn_topk_dim_survivors(rows: torch.Tensor, cols: torch.Tensor,
         kept.max() if kept.numel() else kept.new_tensor(math.nan),
         counts.float().mean(), counts.max().float(),
         (~fits).sum().float()]).tolist()
-    return {"rows": counts.numel(), "mean": mean, "max": top,
-            "candidates_mean": c_mean, "candidates_max": int(c_max),
-            "over_capacity": int(over), "capacity": DIM_CANDIDATES}
+    return d2, idx, {"rows": counts.numel(), "mean": mean, "max": top,
+                     "candidates_mean": c_mean, "candidates_max": int(c_max),
+                     "over_capacity": int(over), "capacity": DIM_CANDIDATES}

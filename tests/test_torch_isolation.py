@@ -90,8 +90,7 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py",
-                          ROOT / "knn_dim_breakdown.py"],
+                         [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_import(path):
     """Also catches imports inside functions, which the import test above

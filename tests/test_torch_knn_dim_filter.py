@@ -8,9 +8,11 @@ p, from U, and rescores exactly only the columns with !(L > tau). The
 plain version rounds to TF32 on the fp32 bits, sums the products (and the
 squared norms) in fp32 in shuffled orders, and forms U and L with the
 kernel's formula and directed roundings. On every case of
-``chip_smoke.filter_cases`` (D = 263 and 519: a standardised embedding,
-an offset of 1e4, magnitudes of 1e19-1e20, subnormal coordinates, exact
-duplicates tied at the k-th place, NaN and masked columns):
+``chip_smoke.filter_cases`` at 8 rows and 2048 columns (D = 263 and 519:
+a standardised embedding, an offset of 1e4, magnitudes of 1e19-1e20,
+subnormal coordinates, exact duplicates tied at the k-th place, NaN and
+masked columns; 16 tiles, so that the sweep lists columns under its
+running threshold as well as on its last visits):
 
 1. (1 + g) U >= p >= (1 - g) L wherever a bound is not NaN
    (``filter_p_bounds``; the kernel keeps U and L without the factors),
@@ -37,7 +39,7 @@ torch = pytest.importorskip("torch")
 import chip_smoke
 from pointstowood_tpu_torch.ops import knn_kernels as kk
 
-CASES = chip_smoke.filter_cases(20261017)
+CASES = chip_smoke.filter_cases(20261017, n_rows=8, n_cols=(2048,))
 FLT_MAX = float(np.finfo(np.float32).max)
 NAMES = [c[0] for c in CASES]
 
@@ -106,20 +108,21 @@ def test_more_duplicates_than_candidates_overflow():
     counts = surv.sum(-1)
     assert bool((counts[:, 0] > kk.DIM_CANDIDATES).all())
     assert bool((counts[:, 1:] <= kk.DIM_CANDIDATES).all())
-    stats = kk.knn_topk_dim_survivors(r, c, m, k)
+    d_k, i_k, stats = kk.knn_topk_dim_survivors(r, c, m, k)
     assert stats["over_capacity"] == 2 and stats["rows"] == 16
     assert stats["candidates_max"] >= int(counts.max())
     assert stats["max"] == int(counts[:, 1:].max())
     d_s, i_s = _select_rows(r, c, surv, k)
     d_p, i_p = kk.select_plain_dim(r, c, m, k)
     assert torch.equal(d_s, d_p) and torch.equal(i_s, i_p)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
 
 
 @pytest.mark.parametrize("k", [2, 8, 16, 48, 64])
 def test_certificate_at_every_instance(k):
     """tau at K = 2-64 (KL = 1, 2, 4, 8, 8 a lane) still holds the top-k,
     also at k = 48 (the K = 64 instance keeps 48 slots)."""
-    r, c, m, _ = _case("duplicates tied at the k-th place D=263")
+    r, c, m, _ = _case("duplicates tied at the k-th place D=263 C=2048")
     u, lo, tau, surv = kk.filter_plain(r, c, m, k)
     d_p, i_p = kk.select_plain_dim(r, c, m, k)
     assert bool((d_p[..., -1] <= kk.filter_p_bounds(tau, tau, 263)[0]).all())
