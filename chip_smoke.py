@@ -226,6 +226,22 @@ exits non-zero and prints no final line):
                loss, steps per second, each epoch's seconds. It fails
                below BA 0.70 with either route, above 90% of points
                labelled wood, or below 99% agreement of the routes.
+16c. tools   -- the port's analysis tools on the held-out forest (written
+               as a PLY with its truth column): ``threshold_sweep.main``
+               with ``c32.ckpt`` at ``--max_pts 8192``, thresholds
+               0.3-0.7 (wood fraction, BA, F1 each; the 0.50 row's BA
+               within 0.01 of phase ``accuracy``'s fast BA; ``knn_topk``,
+               ``knn_top2`` and ``interp_blend`` must launch; BASELINE.md
+               row 2's JAX sweep printed beside it as JAX's);
+               ``geometric_priors`` (k = 128) on the card and on the CPU
+               (p99 |delta| <= 1e-4; the card's seconds); ``pathlengths``,
+               then ``compare.main`` over a ``_ours.ply`` (the 0.50
+               labels, the path lengths) and a ``_fsct.ply`` (the exact
+               route's labels as FSCT's 2 = wood): each BA in its
+               ``results.csv`` equals the BA computed directly, rounded as
+               the file rounds it; ``instance_segment`` on the 0.50 labels
+               with ``n_z``: instances against the 4 trees, each tree's
+               share in its largest instance, seconds.
 17. floors   -- each selection's and ``group_min``'s issue-rate floor:
                its distance pairs times the SASS hot path's instructions
                a pair (phase 2) over the SMs' issue rate (``knn_topk_dim``:
@@ -3249,11 +3265,17 @@ def make_forest(seed, n_trees=4, pts_per_tree=25000):
 
 
 def balanced_accuracy(truth, pred) -> float:
-    """sklearn's ``balanced_accuracy_score``: the mean of the per-class
-    recall over the classes present in ``truth``."""
-    truth, pred = np.asarray(truth), np.asarray(pred)
-    return float(np.mean([np.mean(pred[truth == c] == c)
-                          for c in np.unique(truth)]))
+    """sklearn's ``balanced_accuracy_score`` (the port's
+    ``tools/scores.py``): the mean of the per-class recall over the classes
+    present in ``truth``."""
+    import warnings
+
+    from pointstowood_tpu_torch.tools import scores
+
+    with warnings.catch_warnings():
+        # a predicted class absent from the truth has no recall: dropped
+        warnings.simplefilter("ignore")
+        return scores.balanced_accuracy(truth, pred)
 
 
 # The reference script trains 50 epochs. On an H100 at 700 W they took
@@ -3377,6 +3399,166 @@ def accuracy_phase(dev, smi, wrappers, epochs, channels=32):
             f"accuracy: BA {ba_exact:.4f} / {ba_fast:.4f} (exact / fast), "
             f"wood {rec['wood_fraction_exact']:.3f}, agreement "
             f"{rec['label_agreement']:.4f}")
+    return rec, ckpt, ex["label"]
+
+
+# ------------------------------------------------------------------- tools
+
+# BASELINE.md row 2: the JAX package's sweep (a different run: another
+# checkpoint, on a TPU), threshold -> (BA, F1)
+JAX_SWEEP = {0.3: (0.696, 0.622), 0.4: (0.781, 0.698), 0.5: (0.788, 0.723),
+             0.6: (0.779, 0.713), 0.7: (0.769, 0.699)}
+TOOLS_MAX_DBA = 0.01
+TOOLS_MAX_PRIOR_P99 = 1e-4
+
+
+def tools_phase(dev, smi, wrappers, accuracy, ckpt, exact_labels):
+    """Phase ``tools`` (see the module docstring, 16c): the port's
+    threshold sweep, priors, path length, compare and instance tools on
+    ``make_forest(seed=99, n_trees=4)`` with phase ``accuracy``'s
+    checkpoint and exact-route labels."""
+    import shutil
+
+    import torch
+
+    from pointstowood_tpu_torch.io import write_ply
+    from pointstowood_tpu_torch.ops.normalization import ground_normalize_np
+    from pointstowood_tpu_torch.predict.fusion import knn_indices
+    from pointstowood_tpu_torch.tools import (
+        compare,
+        instance,
+        pathlength,
+        priors,
+        scores,
+        threshold_sweep,
+    )
+
+    t_phase = time.perf_counter()
+    wdir = os.path.join(ROOT, "build", "chip_smoke_tools")
+    shutil.rmtree(wdir, ignore_errors=True)
+    os.makedirs(wdir)
+    forest = make_forest(seed=99, n_trees=4)
+    truth = forest["truth"]
+    xyz = np.stack([forest[c] for c in ("x", "y", "z")], 1)
+    ply = os.path.join(wdir, "forest.ply")
+    write_ply(ply, forest)
+
+    # the sweep: one classification, a fusion a threshold
+    thresholds = [0.3, 0.4, 0.5, 0.6, 0.7]
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = threshold_sweep.main(
+        [ply, "--model", ckpt, "--max_pts", "8192", "--thresholds"]
+        + [str(t) for t in thresholds], device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    table = [{k: r[k] for k in ("threshold", "wood_frac", "balanced_acc",
+                                "f1")} for r in rows]
+    at50 = next(r for r in rows if r["threshold"] == 0.5)
+    labels50 = at50["labels"]
+    dba = abs(at50["balanced_acc"] - accuracy["ba_fast"])
+
+    # priors on the card and on the CPU, from the same host kNN indices
+    t0 = time.perf_counter()
+    idx = knn_indices(xyz, xyz, 128)
+    knn_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr_card = priors.geometric_priors(xyz, k=128, indices=idx, device=dev)
+    torch.cuda.synchronize()
+    prior_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pr_cpu = priors.geometric_priors(xyz, k=128, indices=idx, device="cpu")
+    prior_cpu_s = time.perf_counter() - t0
+    dp = np.abs(pr_card.astype(np.float64) - pr_cpu)
+
+    # path length, then compare against a synthetic FSCT file
+    t0 = time.perf_counter()
+    plen = pathlength.pathlengths(xyz)
+    path_s = time.perf_counter() - t0
+    cdir = os.path.join(wdir, "compare")
+    os.makedirs(cdir)
+    base = {c: forest[c] for c in ("x", "y", "z")}
+    write_ply(os.path.join(cdir, "forest_ours.ply"),
+              {**base, "truth": truth, "label": labels50[:, 0],
+               "pathlength": plen})
+    write_ply(os.path.join(cdir, "forest_fsct.ply"),
+              {**base, "truth": truth, "label": 2.0 * exact_labels})
+    compare.main([cdir])
+    with open(os.path.join(cdir, "results.csv")) as f:
+        header, *lines = [line.strip().split(",") for line in f]
+    csv = {(r[0], r[1]): {k: float(v) if v else math.nan
+                          for k, v in zip(header[2:], r[2:])}
+           for r in lines}
+    ours, fsct = labels50[:, 0] > 0, exact_labels > 0
+    direct = {
+        ("Other", "ours", "balanced_accuracy"):
+            scores.balanced_accuracy(truth > 0, ours),
+        ("Other", "fsct", "balanced_accuracy"):
+            scores.balanced_accuracy(truth > 0, fsct),
+        ("Other", "ours", "weighted_balanced_accuracy"):
+            scores.balanced_accuracy(
+                truth > 0, ours, sample_weight=plen / max(plen.max(), 1e-12)),
+    }
+    csv_vs_direct = {f"{c}/{m}/{k}": (csv[c, m][k], v)
+                     for (c, m, k), v in direct.items()}
+
+    # instances on the 0.50 labels
+    n_z = ground_normalize_np(xyz, grid_resolution=5.0)
+    t0 = time.perf_counter()
+    inst = instance.instance_segment(
+        {**base, "label": labels50[:, 0], "pwood": labels50[:, 1],
+         "n_z": n_z})
+    instance_s = time.perf_counter() - t0
+    tree = np.arange(len(truth)) // (len(truth) // 4)
+    share = []
+    for t in range(4):
+        ids = inst[(tree == t) & (inst >= 0)]
+        share.append(float(np.bincount(ids).max() / (tree == t).sum())
+                     if len(ids) else 0.0)
+
+    rec = emit(
+        "tools", nvidia_smi=smi, points=len(truth), checkpoint=os.path.relpath(
+            ckpt, ROOT), sweep=table, sweep_s=sweep_s, launches=launches,
+        ba_050=at50["balanced_acc"], accuracy_ba_fast=accuracy["ba_fast"],
+        abs_dba=dba, f1_exact_route=scores.f1(truth > 0, fsct),
+        jax_sweep_baseline_row2={
+            "note": "the JAX package's sweep, BASELINE.md row 2: another "
+                    "checkpoint, another run, on a TPU",
+            "ba_f1": {str(t): v for t, v in JAX_SWEEP.items()}},
+        priors_k=128, priors_knn_s=knn_s, priors_card_s=prior_card_s,
+        priors_cpu_s=prior_cpu_s, priors_p99_abs_delta=float(
+            np.quantile(dp, 0.99)), priors_max_abs_delta=float(dp.max()),
+        priors_mean=float(pr_card.mean()), pathlength_s=path_s,
+        pathlength_max=float(plen.max()), results_csv_vs_direct=csv_vs_direct,
+        instances=int(len(np.unique(inst[inst >= 0]))), trees=4,
+        instance_largest_share=share,
+        instance_unassigned=float((inst < 0).mean()), instance_s=instance_s,
+        seconds=time.perf_counter() - t_phase)
+    print("threshold  BA (port)  F1 (port)  BA (JAX, BASELINE.md row 2)  "
+          "F1 (JAX)", flush=True)
+    for r in table:
+        jba, jf1 = JAX_SWEEP[r["threshold"]]
+        print(f"{r['threshold']:9.2f}  {r['balanced_acc']:9.3f}  "
+              f"{r['f1']:9.3f}  {jba:27.3f}  {jf1:8.3f}", flush=True)
+    for name in ("knn_topk", "knn_top2", "interp_blend"):
+        if launches[name] == 0:
+            raise AssertionError(f"tools: {name} did not launch in the sweep")
+    if not dba <= TOOLS_MAX_DBA:
+        raise AssertionError(
+            f"tools: the sweep's 0.50 BA {at50['balanced_acc']} is {dba} "
+            f"from the fast BA {accuracy['ba_fast']}")
+    if not (np.isfinite(pr_card).all()
+            and rec["priors_p99_abs_delta"] <= TOOLS_MAX_PRIOR_P99):
+        raise AssertionError(f"tools: priors card vs CPU p99 "
+                             f"{rec['priors_p99_abs_delta']}")
+    for key, (in_csv, value) in csv_vs_direct.items():
+        if in_csv != round(value, 3):
+            raise AssertionError(f"tools: results.csv {key} {in_csv} != "
+                                 f"{value} rounded to 3 places")
     return rec
 
 
@@ -3878,7 +4060,9 @@ def main(argv=None) -> int:
             row["launches"] = k128_launches["knn_topk"]
             row["launches_path"] = "Net(k=128) forward (phase forward_k128)"
     train_cli_phase(dev, smi, train_wrappers, eval_ply, eval_wood)
-    accuracy_phase(dev, smi, train_wrappers, opts.accuracy_epochs)
+    accuracy, ckpt, exact_labels = accuracy_phase(
+        dev, smi, train_wrappers, opts.accuracy_epochs)
+    tools_phase(dev, smi, every_wrapper, accuracy, ckpt, exact_labels)
 
     floors_phase(rows, sass)
 

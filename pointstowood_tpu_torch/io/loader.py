@@ -20,7 +20,12 @@ import numpy as np
 
 from pointstowood_tpu_torch.io.las import read_las, write_las
 from pointstowood_tpu_torch.io.pcd import read_pcd
-from pointstowood_tpu_torch.io.ply import n_rows, read_ply, write_ply
+from pointstowood_tpu_torch.io.ply import (
+    extra_columns,
+    n_rows,
+    read_ply,
+    write_ply,
+)
 
 _PREDICTION_COLUMNS = ("label", "pwood", "pleaf")
 
@@ -47,7 +52,7 @@ def load_file(filename: str, additional_headers: bool = False,
     if verbose:
         print(f"read in {filename} with {n_rows(pc)} points")
     if additional_headers:
-        return pc, [c for c in pc if c not in ("x", "y", "z")]
+        return pc, extra_columns(pc)
     return pc
 
 

@@ -41,6 +41,18 @@ def n_rows(table: dict) -> int:
     return len(next(iter(table.values()))) if table else 0
 
 
+def select_rows(table: dict, keep) -> dict:
+    """A new column table of the rows that ``keep`` (a boolean mask or an
+    index array) selects, every column in its order."""
+    return {c: np.asarray(v)[keep] for c, v in table.items()}
+
+
+def extra_columns(table: dict) -> list:
+    """Every column name but x, y, z: the ``additional_fields`` of a save
+    that keeps them all."""
+    return [c for c in table if c not in ("x", "y", "z")]
+
+
 def _parse_header(fp):
     """Parse a PLY header: (fmt, n_vertices, names, dtypes, data_offset)."""
     names, dtypes = [], []

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _AXIS_BITS = 10
@@ -124,3 +125,16 @@ def voxel_representatives(ids: torch.Tensor, capacity: int,
     valid = torch.gather(key, 1, perm) != _U32
     idx = torch.gather(order, 1, perm)
     return torch.where(valid, idx, 0), valid
+
+
+def voxel_cell_ids_np(pos, size, origin=None) -> np.ndarray:
+    """Host int64 cell ids with no packing limit (the JAX package's
+    ``voxel_cell_ids_np``): x-major lexicographic ids over the occupied
+    extent, origin the minimum of ``pos`` unless given. For clouds that
+    span hundreds of metres (``tools/pathlength.py``)."""
+    pos = np.asarray(pos)
+    if origin is None:
+        origin = pos.min(axis=0)
+    cells = np.floor((pos - origin) / float(size)).astype(np.int64)
+    extent = cells.max(axis=0) + 1
+    return (cells[:, 0] * extent[1] + cells[:, 1]) * extent[2] + cells[:, 2]

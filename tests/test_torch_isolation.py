@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: it imports neither JAX, pandas nor the
-JAX package (the card's machine has none of them), its entry points
-refuse to fall back to the CPU silently, and ``chip_smoke.py`` fails
-without a card or without the repo around it."""
+"""The PyTorch port stands alone: it imports neither JAX, pandas, sklearn
+nor the JAX package (the card's machine has none of them), importing it
+loads no matplotlib (``tools/compare.py`` imports it optionally, inside
+``main``), its entry points refuse to fall back to the CPU silently, and
+``chip_smoke.py`` fails without a card or without the repo around it."""
 
 import ast
 import os
@@ -25,10 +26,17 @@ def _is_jax_package(name: str) -> bool:
 
 
 def _is_jax(name: str) -> bool:
-    """jax, jaxlib, flax, optax, and pandas (which the port replaces with
-    column tables)."""
+    """jax, jaxlib, flax, optax, pandas (which the port replaces with
+    column tables) and sklearn (``tools/scores.py``, ``tools/hdbscan.py``)."""
     return any(name == top or name.startswith(top + ".")
-               for top in ("jax", "jaxlib", "flax", "optax", "pandas"))
+               for top in ("jax", "jaxlib", "flax", "optax", "pandas",
+                           "sklearn"))
+
+
+def _is_optional(name: str) -> bool:
+    """matplotlib: ``tools/compare.main`` draws with it where it is
+    installed, so no module may load it on import."""
+    return name == "matplotlib" or name.startswith("matplotlib.")
 
 
 def _port_modules():
@@ -48,13 +56,16 @@ def test_prefix_matcher():
     assert _is_jax("pandas") and _is_jax("pandas.core.frame")
     assert _is_jax("flax.linen") and not _is_jax("jaxtyping")
     assert _is_jax("optax") and not _is_jax("optaxx")
+    assert _is_jax("sklearn.cluster") and not _is_jax("sklearnx")
+    assert _is_optional("matplotlib.pyplot") and not _is_optional("matplot")
     assert not _is_jax_package("pointstowood_tpu_torch")
     assert not _is_jax_package("pointstowood_tpu_torch.ops.knn")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of the port in a fresh interpreter, then look at
-    sys.modules (for jax, flax, pandas and the JAX package)."""
+    sys.modules (for jax, flax, pandas, sklearn, matplotlib and the JAX
+    package)."""
     mods = _port_modules()
     assert len(mods) >= 25
     code = (
@@ -70,13 +81,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     import json
 
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert not [m for m in loaded if _is_jax(m)]
+    assert not [m for m in loaded if _is_jax(m) or _is_optional(m)]
     assert not [m for m in loaded if _is_jax_package(m)]
     assert "pointstowood_tpu_torch.predict.predicter" in loaded
     assert "pointstowood_tpu_torch.cli.predict" in loaded
     for m in ("cli.train", "train.trainer", "train.loss", "train.metrics",
               "train.schedule", "train.augmentation", "ops.sampling"):
         assert f"pointstowood_tpu_torch.{m}" in loaded
+    for m in ("clustering", "collect_attribute", "compare",
+              "height_normalisation", "hdbscan", "instance", "pathlength",
+              "priors", "scores", "split_ply", "threshold_sweep"):
+        assert f"pointstowood_tpu_torch.tools.{m}" in loaded
 
 
 def _imports(path):
@@ -215,6 +230,34 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--point-cloud", str(tmp_path / "p.ply"),
                   "--model", str(tmp_path / "m.pth")])
+
+
+def test_device_tools_raise_without_cuda(monkeypatch, tmp_path):
+    """threshold_sweep (main and sweep) and geometric_priors default to
+    CUDA and raise without it; with device="cpu" they run."""
+    import numpy as np
+
+    from pointstowood_tpu_torch.io import write_ply
+    from pointstowood_tpu_torch.tools import priors, threshold_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pc = _tiny_plot()
+    write_ply(str(tmp_path / "p.ply"), pc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        threshold_sweep.main([str(tmp_path / "p.ply"), "--model",
+                              str(tmp_path / "m.pth")])
+    classified = np.concatenate(
+        [np.stack([pc["x"], pc["y"], pc["z"]], 1), np.zeros((600, 1)),
+         np.full((600, 1), 0.7)], 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(threshold_sweep.sweep(classified, pc, [0.5]))
+    _, labels = next(threshold_sweep.sweep(classified, pc, [0.5],
+                                           device="cpu"))
+    assert (labels[:, 0] == 1).all()
+    xyz = np.stack([pc["x"], pc["y"], pc["z"]], 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        priors.geometric_priors(xyz, k=8)
+    assert priors.geometric_priors(xyz, k=8, device="cpu").shape == (600,)
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
