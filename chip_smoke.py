@@ -242,6 +242,27 @@ exits non-zero and prints no final line):
                the file rounds it; ``instance_segment`` on the 0.50 labels
                with ``n_z``: instances against the 4 trees, each tree's
                share in its largest instance, seconds.
+16d. ddp     -- data parallelism (``pointstowood_tpu_torch/parallel``)
+               on the card's one device. One process on NCCL
+               (``PTW_NUM_PROCESSES=1``; phase ``ddp_nccl``): the predict
+               CLI on a small plot bootstraps the process group itself,
+               one NCCL all-reduce, then one train step of B = 8 x 16384
+               (C = 32) as a data group of one, in fp32 with the exact kNN
+               and in bf16 with the fast kNN. Then two processes on
+               ``cuda:0`` over gloo (NCCL refuses two ranks on one
+               device), 4 tiles each: the same steps (phase ``ddp_step``:
+               fp32 within 1e-5 of the one process's in loss, counts,
+               logits, gradients and state, bf16 within
+               ``CROSSCHECK_TOLERANCES``; both under torch's
+               deterministic algorithms; each rank's step ms, peak
+               memory and kernel launches), then ``cli.predict.main`` on
+               the phase-6 plot; and the one-process CLI on the same
+               plot (phase ``ddp_predict``: labels >= 0.995, p99
+               |delta pwood| <= 0.02, the ranks' tables identical,
+               ``pair_select`` launched on both ranks over entry shares
+               that add up to the plan's, the labelled PLY written by
+               rank 0). Kernel rows gain each rank's launches on the
+               sharded train step and predict.
 17. floors   -- each selection's and ``group_min``'s issue-rate floor:
                its distance pairs times the SASS hot path's instructions
                a pair (phase 2) over the SMs' issue rate (``knn_topk_dim``:
@@ -2354,11 +2375,14 @@ def predict_large_phases(dev, smi, rows, wrappers, large, model_path):
 # ---------------------------------------------------------------- training
 
 
-def supplied_centres(mask, capacity, generator=None, fraction=0.5):
+def supplied_centres(mask, capacity, generator=None, fraction=0.5,
+                     group=None):
     """Centre rule for the CPU-vs-card crosscheck: the first
     floor(n_valid * fraction) valid points of each row by a fixed numpy
     score, drawn on the host, so both devices train on the same centres.
-    Same signature and result contract as ``ops.sampling.random_sample``."""
+    Same signature and result contract as ``ops.sampling.random_sample``
+    (a row's centres depend on that row alone, so ``group`` changes
+    nothing)."""
     import torch
 
     from pointstowood_tpu_torch.ops.sampling import compact_indices
@@ -3562,6 +3586,496 @@ def tools_phase(dev, smi, wrappers, accuracy, ckpt, exact_labels):
     return rec
 
 
+# ---- phase ddp: data parallelism on one card (parallel/mesh.py)
+
+# The sharded train step against one process: fp32 with the exact kNN
+# within the CPU test's bar (tests/test_torch_parallel.py), under
+# torch's deterministic algorithms on both sides (the card's own step
+# repeats bit for bit only so, phase train_crosscheck); bf16 with the
+# fast kNN within CROSSCHECK_TOLERANCES.
+DDP_STEP_TOL = 1e-5
+DDP_LR = 1e-4
+DDP_STEP_CONFIGS = (("fp32_exact", {"compute_dtype": "float32",
+                                    "knn_mode": "exact"}),
+                    ("bf16_fast", {}))
+DDP_TRAIN_KERNELS = ("knn_topk", "knn_top2", "interp_blend",
+                     "blend_bwd_lists", "interp_blend_bwd")
+DDP_PREDICT_KERNELS = ("knn_topk", "knn_top2", "interp_blend",
+                       "pair_select")
+
+
+def _kernel_wrappers() -> dict:
+    from pointstowood_tpu_torch.ops.fusion_kernels import pair_select
+    from pointstowood_tpu_torch.ops.interp_kernels import (
+        blend_bwd_lists,
+        interp_blend,
+        interp_blend_bwd,
+    )
+    from pointstowood_tpu_torch.ops.knn_kernels import knn_top2, knn_topk
+
+    return {"knn_topk": knn_topk, "knn_top2": knn_top2,
+            "interp_blend": interp_blend, "blend_bwd_lists": blend_bwd_lists,
+            "interp_blend_bwd": interp_blend_bwd, "pair_select": pair_select}
+
+
+def ddp_step_batch(seed):
+    """The train_step phase's batch: eight full 16384-point tiles and
+    seeded labels."""
+    from pointstowood_tpu_torch.data.dataset import pad_tiles
+
+    tiles = synthetic_tiles(seed)
+    batch = pad_tiles([t.points for t in tiles if len(t) == 16384][:8],
+                      16384)
+    labels = np.random.default_rng(seed).random(batch.mask.shape) < 0.3
+    return (batch.pos, batch.reflectance, batch.mask, batch.sf,
+            labels.astype(np.float32))
+
+
+def ddp_steps(group, seed) -> dict:
+    """One train step of each DDP_STEP_CONFIGS configuration from the
+    seeded weights, this process's rows of ``ddp_step_batch`` under
+    ``group`` (a ``parallel.DataGroup``): loss, counts, logits (this
+    process's rows), the gradients the clip saw, the state after the
+    step, the step's ms and peak memory, the launches of the train
+    path's kernels (counts set to 0 just before); for bf16 also three
+    more steps' ms."""
+    import torch
+
+    from pointstowood_tpu_torch.config import ModelConfig, TrainConfig
+    from pointstowood_tpu_torch.model.layers import set_data_group
+    from pointstowood_tpu_torch.parallel.mesh import shard_rows
+    from pointstowood_tpu_torch.train import trainer
+    from pointstowood_tpu_torch.utils.checkpoint_convert import (
+        state_dict_from_flax,
+    )
+
+    wrappers = _kernel_wrappers()
+    arrays = ddp_step_batch(seed)
+    out = {}
+    saved_clip = trainer.clip_by_global_norm_
+    for name, kw in DDP_STEP_CONFIGS:
+        net = trainer.build_train_net(ModelConfig(**kw), seed, device="cuda")
+        net.load_state_dict(state_dict_from_flax(seeded_flax_variables(
+            net, seed)))
+        set_data_group(net, group)
+        cfg = TrainConfig()
+        opt = trainer.make_optimizer(net, cfg)
+        step = trainer.make_train_step(net, opt, cfg, group)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in shard_rows(group, *arrays)]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        rec = {}
+
+        def recording_clip(grads, max_norm, rec=rec):
+            rec["grads"] = [g.detach().cpu().clone() for g in grads]
+            return saved_clip(grads, max_norm)
+
+        hook = net.register_forward_hook(
+            lambda m, i, o, rec=rec: rec.__setitem__(
+                "logits", o.detach().float().cpu().clone()))
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        trainer.clip_by_global_norm_ = recording_clip
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, counts, finite = step(*args, DDP_LR, gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            trainer.clip_by_global_norm_ = saved_clip
+            torch.use_deterministic_algorithms(False)
+        hook.remove()
+        rec.update(
+            loss=float(loss), counts=counts.cpu().tolist(), finite=finite,
+            ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches={n: fn.launches for n, fn in wrappers.items()},
+            names=[n for n, _ in net.named_parameters()],
+            state={k: v.detach().cpu().clone()
+                   for k, v in net.state_dict().items()})
+        if name == "bf16_fast":
+            more = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(*args, DDP_LR, gen)
+                torch.cuda.synchronize()
+                more.append((time.perf_counter() - t0) * 1e3)
+            rec["more_ms"] = more
+        out[name] = rec
+        del net, opt, step, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_launch_env(rank: int, world: int, port: int) -> None:
+    """The JAX package's launch variables for process ``rank`` of
+    ``world`` on this host's one card."""
+    os.environ.update(PTW_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      PTW_NUM_PROCESSES=str(world),
+                      PTW_PROCESS_ID=str(rank), LOCAL_RANK="0")
+
+
+def _recorded_predict(argv) -> tuple:
+    """``cli.predict.main(argv)`` with the labelled table it builds, the
+    pair entries each launch of ``pair_select`` took, and the launches of
+    the serving path's kernels (counts set to 0 just before)."""
+    from pointstowood_tpu_torch.cli import predict as predict_cli
+    from pointstowood_tpu_torch.predict import device_fusion, predicter
+
+    wrappers = _kernel_wrappers()
+    tables, entries = [], []
+    real_seg, real_select = (predicter.semantic_segmentation,
+                             device_fusion.pair_select)
+
+    def seg(*a, **k):
+        tables.append(real_seg(*a, **k))
+        return tables[-1]
+
+    def select(queries, *a, **k):
+        entries.append(int(queries.shape[0]))
+        return real_select(queries, *a, **k)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    predicter.semantic_segmentation = seg
+    device_fusion.pair_select = select
+    try:
+        (rec,) = predict_cli.main(argv)
+    finally:
+        predicter.semantic_segmentation = real_seg
+        device_fusion.pair_select = real_select
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    return rec, tables[0], entries, launches
+
+
+def _predict_argv(ply_path, model_path):
+    return ["--point-cloud", ply_path, "--model", model_path,
+            "--grid_size", "2.0", "4.0", "--min_pts", "128",
+            "--max_pts", "16384", "--batch_size", "8"]
+
+
+def ddp_one_process_worker(_, port, work, model_path, seed):
+    """Phase ddp, one process on NCCL: the predict CLI on a small plot
+    bootstraps the process group itself from ``PTW_NUM_PROCESSES=1``
+    (NCCL, the default on CUDA), one NCCL all-reduce, then the one-process
+    train steps: as a data group of one (the data-parallel numerics, float64
+    batch statistics, without collectives: the reference of the split
+    run), and without a group (float32 statistics, as the CLIs run one
+    process: timed beside it). Results to ``work/one.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from pointstowood_tpu_torch.parallel.mesh import DataGroup, data_group
+
+    _ddp_launch_env(0, 1, port)
+    rec, table, entries, launches = _recorded_predict(_predict_argv(
+        os.path.join(work, "nccl", "small.ply"), model_path))
+    backend = dist.get_backend()
+    probe = torch.full((4,), 3.0, device="cuda")
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    result = {"backend": backend, "world": dist.get_world_size(),
+              "group_is_none": data_group() is None,
+              "all_reduce": probe.cpu().tolist(), "cli_points": rec["points"],
+              "cli_seconds": rec["seconds"], "cli_launches": launches,
+              "cli_wood": float(np.mean(table["label"])),
+              "steps": ddp_steps(DataGroup(0, 1, None), seed),
+              "ungrouped": {name: {k: v for k, v in rec.items()
+                                   if k in ("loss", "ms", "more_ms",
+                                            "peak_gib")}
+                            for name, rec in ddp_steps(None, seed).items()}}
+    torch.save(result, os.path.join(work, "one.pt"))
+    dist.destroy_process_group()
+
+
+def ddp_rank_worker(rank, world, port, work, ply_path, model_path, seed):
+    """Phase ddp, one of ``world`` processes on ``cuda:0`` over gloo: the
+    sharded train steps, then ``cli.predict.main`` on the plot (its own
+    bootstrap finds the group made here). Results to
+    ``work/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from pointstowood_tpu_torch.parallel.mesh import (
+        data_group,
+        maybe_init_distributed,
+    )
+
+    _ddp_launch_env(rank, world, port)
+    if not maybe_init_distributed(backend="gloo"):
+        raise AssertionError("ddp: the group did not form")
+    group = data_group()
+    steps = ddp_steps(group, seed)
+    torch.cuda.reset_peak_memory_stats()
+    rec, table, entries, launches = _recorded_predict(
+        _predict_argv(ply_path, model_path))
+    torch.save({"rank": rank, "backend": dist.get_backend(), "steps": steps,
+                "predict": {"seconds": rec["seconds"], "entries": entries,
+                            "launches": launches,
+                            "label": np.asarray(table["label"]),
+                            "pwood": np.asarray(table["pwood"]),
+                            "peak_gib": torch.cuda.max_memory_allocated()
+                            / 2**30}},
+               os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_compare_steps(one: dict, ranks: list) -> dict:
+    """The two processes' steps against the one process's: fp32_exact
+    within DDP_STEP_TOL (loss, counts, logits, every gradient carrying
+    >= 1e-6 of the gradient's L1 mass per tensor, the whole gradient,
+    the running statistics and those parameters after the step; the
+    parameters whose gradient is rounding noise within 2.1 lr),
+    bf16_fast within CROSSCHECK_TOLERANCES; the processes' states
+    identical. Raises on a miss; returns the measured distances."""
+    import torch
+
+    out = {}
+    m = torch.from_numpy(ddp_step_batch(SEED)[2])
+    for name, _ in DDP_STEP_CONFIGS:
+        ref = one[name]
+        grads_r = dict(zip(ref["names"], ref["grads"]))
+        mass = sum(float(g.abs().sum()) for g in grads_r.values())
+        logits = torch.cat([r[name]["logits"] for r in ranks])
+        dl = (logits - ref["logits"]).abs()[m]
+        rec = {"loss_one": ref["loss"],
+               "loss_rel": max(abs(r[name]["loss"] - ref["loss"])
+                               / abs(ref["loss"]) for r in ranks),
+               "counts_equal": all(r[name]["counts"] == ref["counts"]
+                                   for r in ranks),
+               "logits_max_abs": float(dl.max()),
+               "logits_mean_abs": float(dl.mean())}
+        per, total, stats, state, noise_step = {}, 0.0, 0.0, 0.0, 0.0
+        for r in ranks:
+            grads = dict(zip(r[name]["names"], r[name]["grads"]))
+            total = max(total, sum(float((grads[k] - g).abs().sum())
+                                   for k, g in grads_r.items()) / mass)
+            for k, g in grads_r.items():
+                if float(g.abs().sum()) >= 1e-6 * mass:
+                    per[k] = max(per.get(k, 0.0), rel_l1(grads[k], g))
+            for k, v in ref["state"].items():
+                if not v.is_floating_point():
+                    continue
+                d = float(((r[name]["state"][k] - v).abs()
+                           / (v.abs() + 1)).max())
+                if "running" in k:
+                    stats = max(stats, d)
+                g = grads_r.get(k)
+                if g is not None and float(g.abs().sum()) < 1e-6 * mass:
+                    # a rounding-noise gradient (a bias or depthwise
+                    # scale right in front of a batch-statistic
+                    # BatchNorm): Adam's first step moves the parameter
+                    # by up to ~lr on any nonzero one
+                    noise_step = max(noise_step, float(
+                        (r[name]["state"][k] - v).abs().max()))
+                else:
+                    state = max(state, d)
+        mass_share = {k: float(g.abs().sum()) / mass
+                      for k, g in grads_r.items()}
+        worst = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+        rec.update(grads_rel_l1_total=total, grads_rel_l1_worst=worst,
+                   grads_rel_l1_conv2=per.get("conv2.weight"),
+                   running_stats_max_rel=stats, state_max_rel=state,
+                   noise_gradient_params_max_abs=noise_step,
+                   ranks_state_identical=all(
+                       torch.equal(v, ranks[1][name]["state"][k])
+                       for k, v in ranks[0][name]["state"].items()))
+        if name == "fp32_exact":
+            tol = DDP_STEP_TOL
+            checks = {
+                "loss_rel": rec["loss_rel"] <= tol,
+                "counts": rec["counts_equal"],
+                "logits": rec["logits_max_abs"] <= tol * max(
+                    1.0, float(ref["logits"].abs()[m].max())),
+                "grads_per_tensor": all(v <= tol for v in per.values()),
+                "grads_total": total <= tol,
+                "state": state <= tol,
+                "noise_gradient_params": noise_step <= 2.1 * DDP_LR,
+            }
+        else:
+            tol = CROSSCHECK_TOLERANCES
+            carried = {k: v for k, v in per.items()
+                       if mass_share[k] >= 1e-3}
+            checks = {
+                "loss_rel": rec["loss_rel"] <= tol["loss_rel"],
+                "logits_mean_abs": rec["logits_mean_abs"]
+                <= tol["logits_mean_abs"],
+                "logits_max_abs": rec["logits_max_abs"]
+                <= tol["logits_max_abs"],
+                "grads_rel_l1_total": total <= tol["grads_rel_l1_total"],
+                "grads_rel_l1_tensor": all(
+                    v <= tol["grads_rel_l1_tensor"]
+                    for v in carried.values()),
+                "grads_rel_l1_conv2": per["conv2.weight"]
+                <= tol["grads_rel_l1_conv2"],
+                "running_stats_rel": stats <= tol["running_stats_rel"],
+            }
+        checks["ranks_state_identical"] = rec["ranks_state_identical"]
+        checks["finite"] = ref["finite"] and all(r[name]["finite"]
+                                                 for r in ranks)
+        rec["checks"] = checks
+        out[name] = rec
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"ddp {name}: two processes and one "
+                                 f"disagree on {failed}: {rec}")
+    return out
+
+
+def ddp_phase(smi, ply_path, ckpt):
+    """Phase ddp: data parallelism on the card's one device. One process
+    (``ddp_one_process_worker``: the predict CLI bootstraps NCCL from
+    ``PTW_NUM_PROCESSES=1``; the one-process train steps), then two
+    processes on ``cuda:0`` over gloo (``ddp_rank_worker``: the sharded
+    train steps, the predict CLI on the phase-6 plot), and the one-process
+    predict CLI here on the same plot; the two runs held against one
+    (``ddp_compare_steps``; labels >= 0.995, p99 |delta pwood| <= 0.02,
+    the ranks' tables identical, ``pair_select`` launched on both ranks
+    over shares of the entries that add up to the plan's). The predict
+    CLI runs ``ckpt``, the accuracy phase's trained C = 32 model, so that
+    the plot holds both classes (checked) and the comparison is not
+    trivial; the wood fraction and the spread of pwood are recorded. Two
+    processes on one card are not a speed-up: their step ms is recorded,
+    not claimed. Returns each rank's launches on the bf16 train step and on
+    the predict CLI."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from pointstowood_tpu_torch.io import write_ply
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_ddp")
+    shutil.rmtree(work, ignore_errors=True)
+    for sub in ("nccl", "one", "two"):
+        os.makedirs(os.path.join(work, sub))
+    write_ply(os.path.join(work, "nccl", "small.ply"),
+              synthetic_plot(SEED + 3, n_side=2)[0])
+    plys = {}
+    for sub in ("one", "two"):
+        plys[sub] = os.path.join(work, sub, "plot.ply")
+        shutil.copyfile(ply_path, plys[sub])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # cuBLAS repeats its sums only with a fixed workspace
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+
+    t0 = time.perf_counter()
+    mp.spawn(ddp_one_process_worker,
+             args=(_free_port(), work, ckpt, SEED), nprocs=1)
+    one_s = time.perf_counter() - t0
+    one = torch.load(os.path.join(work, "one.pt"), weights_only=False)
+    if one["backend"] != "nccl" or one["world"] != 1 \
+            or not one["group_is_none"] or one["all_reduce"] != [3.0] * 4:
+        raise AssertionError(f"ddp: NCCL bootstrap: {one['backend']}, "
+                             f"world {one['world']}, {one['all_reduce']}")
+    emit("ddp_nccl", backend=one["backend"], world=one["world"],
+         all_reduce=one["all_reduce"], cli_points=one["cli_points"],
+         cli_seconds=one["cli_seconds"], cli_launches=one["cli_launches"],
+         cli_wood_fraction=one["cli_wood"], process_s=one_s)
+
+    t0 = time.perf_counter()
+    mp.spawn(ddp_rank_worker,
+             args=(2, _free_port(), work, plys["two"], ckpt, SEED),
+             nprocs=2)
+    two_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    compared = ddp_compare_steps(one["steps"], [r["steps"] for r in ranks])
+    step_rec = {}
+    for name, _ in DDP_STEP_CONFIGS:
+        step_rec[name] = {
+            "one_process": {k: one["steps"][name][k] for k in
+                            ("loss", "counts", "ms", "peak_gib", "launches")
+                            + (("more_ms",) if name == "bf16_fast" else ())},
+            "ranks": [{k: r["steps"][name][k] for k in
+                       ("loss", "counts", "ms", "peak_gib", "launches")
+                       + (("more_ms",) if name == "bf16_fast" else ())}
+                      for r in ranks],
+            # float32 statistics: the one-process numerics of the CLIs
+            "one_process_ungrouped": one["ungrouped"][name],
+            "compared": compared[name]}
+    for r in ranks:
+        for k in DDP_TRAIN_KERNELS:
+            if r["steps"]["bf16_fast"]["launches"][k] == 0:
+                raise AssertionError(f"ddp: {k} did not launch on rank "
+                                     f"{r['rank']}'s train step")
+    emit("ddp_step", nvidia_smi=smi, batch=[8, 16384], ranks=2,
+         backend=ranks[0]["backend"], device="cuda:0 (both ranks)",
+         tolerance_fp32_exact=DDP_STEP_TOL,
+         tolerances_bf16_fast=CROSSCHECK_TOLERANCES,
+         deterministic_algorithms=True, **step_rec, processes_s=two_s)
+
+    # the one-process predict CLI on the same plot, here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec1, table1, entries1, launches1 = _recorded_predict(
+        _predict_argv(plys["one"], ckpt))
+    one_wall = time.perf_counter() - t0
+    preds = [r["predict"] for r in ranks]
+    for p in preds[1:]:
+        if not (np.array_equal(p["label"], preds[0]["label"])
+                and np.array_equal(p["pwood"], preds[0]["pwood"])):
+            raise AssertionError("ddp: the ranks' labelled tables differ")
+    agree = float((preds[0]["label"] == table1["label"]).mean())
+    dp = np.abs(preds[0]["pwood"] - table1["pwood"])
+    p99 = float(np.quantile(dp, 0.99))
+    shares = [sum(p["entries"]) for p in preds]
+    wood = float(np.mean(table1["label"]))
+    pwood1 = np.asarray(table1["pwood"])
+    rec = emit("ddp_predict", nvidia_smi=smi, ranks=2, points=len(dp),
+               model=os.path.relpath(ckpt, ROOT),
+               wood_fraction_one_process=wood,
+               wood_fraction_two_ranks=float(np.mean(preds[0]["label"])),
+               pwood_one_process_quantiles={
+                   q: float(np.quantile(pwood1, q))
+                   for q in (0.01, 0.1, 0.5, 0.9, 0.99)},
+               pwood_one_process_std=float(pwood1.std()),
+               label_agreement=agree, p99_abs_dpwood=p99,
+               max_abs_dpwood=float(dp.max()),
+               entries_one_process=sum(entries1), entries_per_rank=shares,
+               pair_select_calls_per_rank=[len(p["entries"]) for p in preds],
+               launches_per_rank=[p["launches"] for p in preds],
+               launches_one_process=launches1,
+               seconds_per_rank=[p["seconds"] for p in preds],
+               seconds_one_process=rec1["seconds"],
+               wall_one_process_s=one_wall,
+               peak_gib_per_rank=[p["peak_gib"] for p in preds],
+               ply_written=[os.path.exists(os.path.join(
+                   work, sub, "plot_ours.ply")) for sub in ("one", "two")])
+    if agree < 0.995 or p99 > 0.02:
+        raise AssertionError(f"ddp: two ranks and one process disagree on "
+                             f"the plot: {agree}, p99 {p99}")
+    if not 0.0 < wood < 1.0:
+        raise AssertionError(f"ddp: the model labels {wood} of the plot as "
+                             f"wood: a comparison of one class")
+    for p in preds:
+        for k in DDP_PREDICT_KERNELS:
+            if p["launches"][k] == 0:
+                raise AssertionError(f"ddp: {k} did not launch on a rank's "
+                                     f"predict")
+    if min(shares) == 0 or sum(shares) != sum(entries1):
+        raise AssertionError(f"ddp: entry shares {shares} against "
+                             f"{sum(entries1)}")
+    if not all(rec["ply_written"]):
+        raise AssertionError("ddp: rank 0 wrote no labelled PLY")
+    emit("ddp", seconds=time.perf_counter() - t_phase)
+    return ([r["steps"]["bf16_fast"]["launches"] for r in ranks],
+            [p["launches"] for p in preds])
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4063,6 +4577,13 @@ def main(argv=None) -> int:
     accuracy, ckpt, exact_labels = accuracy_phase(
         dev, smi, train_wrappers, opts.accuracy_epochs)
     tools_phase(dev, smi, every_wrapper, accuracy, ckpt, exact_labels)
+    ddp_steps_launches, ddp_predict_launches = ddp_phase(smi, eval_ply, ckpt)
+    for row in rows:
+        # each rank's launches on the sharded paths (phase ddp)
+        row["launches_ddp_train_step_per_rank"] = [
+            n.get(row["wrapper"], 0) for n in ddp_steps_launches]
+        row["launches_ddp_predict_per_rank"] = [
+            n.get(row["wrapper"], 0) for n in ddp_predict_launches]
 
     floors_phase(rows, sass)
 

@@ -24,6 +24,11 @@ package's flax msgpack ``.ckpt`` (``utils/msgpack.py``, no flax needed),
 that the predict CLI serves. Its one extra kernel is the backward of the interpolation
 blend (``ops/interp_kernels.interp_blend_bwd``).
 
+Data parallelism (``parallel/``, the JAX package's data mesh) runs
+either CLI as one process per card under torchrun or the JAX package's
+``PTW_*`` launch variables over ``torch.distributed``: a run split over
+W processes computes what one process computes with the whole batch.
+
 Entry points (``cli.predict.main``, ``cli.train.main``,
 ``predict.semantic_segmentation``, ``predict.build_net``,
 ``predict.run_inference``, ``fuse_on_device``,

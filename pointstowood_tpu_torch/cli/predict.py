@@ -15,6 +15,13 @@ reference-layout ``.pth`` or the JAX package's flax msgpack ``.ckpt``
 
 Runs on CUDA. ``main(argv, device="cpu")`` runs the plain PyTorch
 versions on the CPU instead (for tests); there is no device flag.
+
+Data parallelism: launch one process per card with torchrun or with the
+JAX package's variables (``PTW_COORDINATOR_ADDRESS``,
+``PTW_NUM_PROCESSES``, ``PTW_PROCESS_ID``); every process tiles the
+cloud, classifies its rows of every batch and fuses its share of the
+pair entries (``parallel/mesh.py``), and only process 0 writes the
+labelled cloud.
 """
 
 from __future__ import annotations
@@ -100,6 +107,19 @@ def main(argv=None, device=None):
     start = datetime.datetime.now()
     args = parse_args(argv)
 
+    from pointstowood_tpu_torch.parallel.mesh import (
+        data_group,
+        is_primary,
+        maybe_init_distributed,
+    )
+    from pointstowood_tpu_torch.utils.device import resolve_device
+
+    # the process group first (no-op without launch variables); on CUDA it
+    # pins this process's card
+    dev = resolve_device(device)
+    maybe_init_distributed(verbose=args.verbose, device=dev)
+    group = data_group()
+
     if args.verbose:
         print('\n---- parameters used ----')
         for k, v in vars(args).items():
@@ -126,9 +146,7 @@ def main(argv=None, device=None):
         semantic_segmentation,
     )
     from pointstowood_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointstowood_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(device)
     if args.num_procs and args.num_procs > 0:
         torch.set_num_threads(args.num_procs)
 
@@ -193,7 +211,7 @@ def main(argv=None, device=None):
             pc = semantic_segmentation(
                 pc, tiles, net, predict_cfg, tiling_cfg,
                 verbose=args.verbose, profile_dir=args.profile, device=dev,
-                timings=seconds,
+                timings=seconds, group=group,
             )
             record = {'input': point_cloud_file, 'output': out_path,
                       'points': n_rows(pc), 'tiles': len(tiles),
@@ -201,7 +219,10 @@ def main(argv=None, device=None):
             records.append(record)
             out_headers = list(dict.fromkeys(headers + ['n_z', 'label',
                                                         'pwood']))
-            saves.append(ex.submit(_save, out_path, pc, out_headers, record))
+            # one writer per (shared) filesystem
+            if is_primary(group):
+                saves.append(ex.submit(_save, out_path, pc, out_headers,
+                                       record))
 
             if args.verbose:
                 rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6

@@ -14,6 +14,14 @@ reuse. Outputs: <wdir>/model/<model> (BatchNorm statistics recalibrated
 under the eval sampling), the rolling best checkpoints beside it, the
 history CSV, and <wdir>/checkpoints/epoch_<n> with --model's suffix.
 
+Data parallelism: launch one process per card with torchrun
+(``torchrun --nproc_per_node 4 -m pointstowood_tpu_torch.cli.train ...``)
+or with the JAX package's variables (``PTW_COORDINATOR_ADDRESS=host:port
+PTW_NUM_PROCESSES=N PTW_PROCESS_ID=i``); every process reads the same
+tiles, forwards its rows of each global batch, and ends with the same
+model (``parallel/mesh.py``); only process 0 writes the checkpoints, the
+history and the backup of old checkpoints.
+
 ``main(argv, device=None)``: ``device`` overrides ``--device`` (the tests
 pass ``device="cpu"`` to run the plain PyTorch versions). Returns the
 history rows.
@@ -81,6 +89,19 @@ def main(argv=None, device=None):
     import numpy as np
     import torch
 
+    from pointstowood_tpu_torch.parallel.mesh import (
+        data_group,
+        is_primary,
+        maybe_init_distributed,
+    )
+    from pointstowood_tpu_torch.utils.device import resolve_device
+
+    # the process group first (no-op without launch variables); on CUDA it
+    # pins this process's card
+    dev = resolve_device(args.device if device is None else device)
+    maybe_init_distributed(verbose=args.verbose, device=dev)
+    group = data_group()
+
     from pointstowood_tpu_torch.config import (
         ModelConfig,
         TilingConfig,
@@ -88,9 +109,7 @@ def main(argv=None, device=None):
     )
     from pointstowood_tpu_torch.data.tiling import load_tiles
     from pointstowood_tpu_torch.train.trainer import semantic_training
-    from pointstowood_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device if device is None else device)
     if args.num_procs and args.num_procs > 0:
         torch.set_num_threads(args.num_procs)
 
@@ -112,7 +131,7 @@ def main(argv=None, device=None):
     # zip + clear old checkpoints (reference train.py:90-94)
     old = [p for suffix in ('pth', 'ckpt') for p in
            glob.glob(os.path.join(args.wdir, f'checkpoints/*.{suffix}'))]
-    if old:
+    if old and is_primary(group):
         shutil.make_archive(
             os.path.join(args.wdir, 'checkpoints_backup'), 'zip',
             os.path.join(args.wdir, 'checkpoints'),
@@ -154,6 +173,8 @@ def main(argv=None, device=None):
     if args.test and not test_tiles:
         test_tiles = None
 
+    if group is not None:
+        print(f'Training data-parallel over {group.world_size} processes')
     if args.verbose:
         print('\n----- Semantic segmentation started -----')
     _, history = semantic_training(
@@ -161,7 +182,7 @@ def main(argv=None, device=None):
         ModelConfig(channels=args.channels, compute_dtype=args.dtype), tiling_cfg,
         wdir=args.wdir, model_name=args.model, test_tiles=test_tiles,
         checkpoints=checkpoints.tolist(), use_wandb=args.wandb,
-        verbose=args.verbose, device=dev,
+        verbose=args.verbose, device=dev, group=group,
     )
 
     if args.verbose:

@@ -85,12 +85,15 @@ class AdaptiveBlending(nn.Module):
         self.pos1 = nn.Linear(pos_in, attention_dim)
         self.pos2 = nn.Linear(attention_dim, 1)
 
+    data_group = None  # layers.set_data_group: products a sample (dense)
+
     def forward(self, features, pos):
         f32 = torch.float32
+        per_sample = self.data_group is not None
 
         def mlp(x, l1, l2):
-            h = torch.relu(dense(x, l1.weight, l1.bias, f32))
-            return dense(h, l2.weight, l2.bias, f32)
+            h = torch.relu(dense(x, l1.weight, l1.bias, f32, per_sample))
+            return dense(h, l2.weight, l2.bias, f32, per_sample)
 
         soft = torch.softmax(torch.cat([mlp(features, self.feat1, self.feat2),
                                         mlp(pos, self.pos1, self.pos2)], -1),
@@ -188,6 +191,8 @@ class AttentivePointConv(nn.Module):
         self.out_proj = nn.Linear(a, in_channels, bias=False)
         self.local_nn = RefMLP(local_channels, dtype)
 
+    data_group = None  # layers.set_data_group: products a sample (dense)
+
     def forward(self, x, pos4, center_idx, nbr_idx, nbr_valid, center_valid,
                 radius=None, use_running_average: bool = True):
         dt = self.dtype
@@ -204,14 +209,15 @@ class AttentivePointConv(nn.Module):
         geo = rel / (max_dist[..., None] + 1e-8)
         combined = torch.cat([geo, pos_j[..., 3:4], x_j], dim=-1).to(dt)
 
-        qkv = dense(combined, self.qkv_proj.weight, None, dt)
+        per_sample = self.data_group is not None
+        qkv = dense(combined, self.qkv_proj.weight, None, dt, per_sample)
         q, k, v = qkv.split(self.a, dim=-1)
         logits = (q * k).sum(-1) * (float(self.a) ** -0.5)
         logits = torch.where(nbr_valid, logits.float(), -math.inf)
         attn = torch.where(nbr_valid, torch.softmax(logits, dim=-1), 0.0)
         out = self.norm(v * attn[..., None].to(v.dtype))
-        out = torch.relu(dense(out, self.mlp.weight, None, dt))
-        out = dense(out, self.out_proj.weight, None, dt)
+        out = torch.relu(dense(out, self.mlp.weight, None, dt, per_sample))
+        out = dense(out, self.out_proj.weight, None, dt, per_sample)
         out = self.local_nn(out, mask=nbr_valid,
                             use_running_average=use_running_average)
         neg = torch.finfo(out.dtype).min

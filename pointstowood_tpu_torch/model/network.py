@@ -102,6 +102,9 @@ class SAStage(nn.Module):
                                (in_channels,) + tuple(nn_channels[1:]), dtype)
             if attention_conv else PointConv(nn_channels, dtype))
         self.residual_block = InvertedResidualBlock(out_features, dtype=dtype)
+        # the data-parallel group whose global batch the training centres
+        # are drawn for (layers.set_data_group)
+        self.data_group = None
 
     def forward(self, x, pos3, refl, mask, sf, capacity: int,
                 training: bool = False, use_running_average: bool = True,
@@ -116,7 +119,8 @@ class SAStage(nn.Module):
         refl = refl * self.reflectanceyesno(refl)
         if training:
             center_idx, center_valid = random_sample(
-                mask, capacity, generator, fraction=0.5)
+                mask, capacity, generator, fraction=0.5,
+                group=self.data_group)
         else:
             ids = voxel_cell_ids(pos3, self.resolution, mask=mask)
             center_idx, center_valid = voxel_representatives(
@@ -225,6 +229,8 @@ class Net(nn.Module):
         self.conv1 = nn.Conv1d(c * 16, c * 16, 1)
         self.conv2 = nn.Conv1d(c * 16, num_classes, 1)
         self.norm = MaskedBatchNorm(c * 16)
+        # layers.set_data_group: the head's products a sample
+        self.data_group = None
 
     def capacities(self, n: int) -> list[int]:
         caps, cap = [], n
@@ -308,9 +314,12 @@ class Net(nn.Module):
                      masks[lvl], ura)
 
         # head (model.py:220-222, 241-243): Conv1d -> BN -> ReLU -> Conv1d
-        y = dense(y, self.conv1.weight, self.conv1.bias, self.dtype)
+        per_sample = self.data_group is not None
+        y = dense(y, self.conv1.weight, self.conv1.bias, self.dtype,
+                  per_sample)
         y = torch.relu(self.norm(y, mask, ura))
-        y = dense(y, self.conv2.weight, self.conv2.bias, self.dtype).float()
+        y = dense(y, self.conv2.weight, self.conv2.bias, self.dtype,
+                  per_sample).float()
         if self.num_classes == 1:
             y = y[..., 0]
         return y

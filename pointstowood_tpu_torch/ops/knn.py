@@ -49,22 +49,26 @@ _EXACT_CHUNK_ELEMS = 1 << 23
 
 def _exact_knn(q, s, smask, k):
     """fp32 top-k ranked like pointstowood_tpu's _exact_knn: expansion
-    form, ties to the lower source index (stable sort)."""
+    form, ties to the lower source index (stable sort). Chunked a sample
+    at a time, in chunks of queries that depend on the source count
+    alone: a sample's products then have the same shapes, and its d2 the
+    same rounding, whatever the batch around it."""
     b, n_q, _ = q.shape
     n = s.shape[1]
     q_sq = (q * q).sum(-1, keepdim=True)
     s_sq = (s * s).sum(-1)[:, None, :]
     out_d = torch.empty((b, n_q, k), device=q.device)
     out_i = torch.empty((b, n_q, k), dtype=torch.int64, device=q.device)
-    step = max(1, _EXACT_CHUNK_ELEMS // max(1, b * n))
-    for lo in range(0, n_q, step):
-        qc = q[:, lo:lo + step]
-        cross = torch.matmul(qc, s.transpose(1, 2))
-        d2 = q_sq[:, lo:lo + step] - 2.0 * cross + s_sq
-        d2 = torch.where(smask[:, None, :], d2.clamp_min(0.0), math.inf)
-        vals, order = torch.sort(d2, dim=-1, stable=True)
-        out_d[:, lo:lo + step] = vals[..., :k]
-        out_i[:, lo:lo + step] = order[..., :k]
+    step = max(1, _EXACT_CHUNK_ELEMS // max(1, n))
+    for i in range(b):
+        for lo in range(0, n_q, step):
+            qc = q[i, lo:lo + step]
+            cross = torch.matmul(qc, s[i].t())
+            d2 = q_sq[i, lo:lo + step] - 2.0 * cross + s_sq[i]
+            d2 = torch.where(smask[i, None, :], d2.clamp_min(0.0), math.inf)
+            vals, order = torch.sort(d2, dim=-1, stable=True)
+            out_d[i, lo:lo + step] = vals[..., :k]
+            out_i[i, lo:lo + step] = order[..., :k]
     return out_i, out_d
 
 
@@ -164,3 +168,25 @@ def knn_topk_with_transpose(query_pos: torch.Tensor,
         t_valid,
         torch.where(t_valid, t_d2, math.inf),
     )
+
+
+def radius_masked(query_pos: torch.Tensor, source_pos: torch.Tensor,
+                  radius: float, k: int,
+                  query_mask: torch.Tensor | None = None,
+                  source_mask: torch.Tensor | None = None,
+                  method: str = "exact"):
+    """Radius search capped at k neighbours (JAX ops/knn.py:312-338).
+
+    Reference semantics (torch-cluster ``radius`` at model.py:118): up to
+    k neighbours within ``radius``. The reference keeps the first k found
+    in scan order; as the JAX package does, this keeps the k *nearest*
+    within the radius: ``knn_masked`` with the slots beyond the radius
+    (d2 > fp32(radius)^2) marked invalid. Returns (idx, d2, valid) under
+    ``knn_masked``'s contract."""
+    idx, d2, valid = knn_masked(query_pos, source_pos, k,
+                                query_mask=query_mask,
+                                source_mask=source_mask, method=method)
+    r2 = torch.tensor(radius, dtype=torch.float32, device=d2.device) ** 2
+    valid = valid & (d2 <= r2)
+    return (torch.where(valid, idx, 0), torch.where(valid, d2, math.inf),
+            valid)

@@ -30,16 +30,27 @@ def compact_indices(select: torch.Tensor, capacity: int):
 
 def random_sample(mask: torch.Tensor, capacity: int,
                   generator: torch.Generator | None,
-                  fraction: float = 0.5):
+                  fraction: float = 0.5, group=None):
     """Uniformly draw ``floor(n_valid * fraction)`` valid points of each
     row of ``mask`` (B, N) without replacement into ``capacity`` slots
     (reference random_sample, model.py:97-101: exactly 50%, sorted
     indices). ``generator`` lives on ``mask``'s device. Returns (idx (B,
-    capacity) int64 ascending, valid (B, capacity) bool)."""
+    capacity) int64 ascending, valid (B, capacity) bool).
+
+    ``group`` (a ``parallel.DataGroup``): ``mask`` holds this process's
+    rows of a global batch of B * W rows (``parallel.shard_rows``); the
+    scores of the whole global batch are drawn and this process's rows
+    kept, so each process picks the centres one process would pick for
+    the same rows, and every generator advances alike."""
     b, n = mask.shape
     n_valid = mask.sum(-1)
     n_take = torch.clamp((n_valid * fraction).to(torch.int64), max=capacity)
-    score = torch.rand((b, n), generator=generator, device=mask.device)
+    if group is None or group.world_size == 1:
+        score = torch.rand((b, n), generator=generator, device=mask.device)
+    else:
+        score = torch.rand((b * group.world_size, n), generator=generator,
+                           device=mask.device)[group.rank * b:
+                                               (group.rank + 1) * b]
     score = torch.where(mask, score, torch.inf)  # invalid points sort last
     order = torch.argsort(score, dim=-1)
     chosen = torch.arange(n, device=mask.device) < n_take[:, None]

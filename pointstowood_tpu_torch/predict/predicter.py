@@ -9,6 +9,13 @@ probabilities come back with the per-tile centring undone
 every original point, on the device pair path or the device index path
 (``predict/device_fusion.py``) where the tiling allows it, else on the
 host path (``predict/fusion.py``).
+
+Data parallelism (the JAX package's ``mesh=``) is ``group=``, a
+``parallel.DataGroup``: every process tiles the same cloud and iterates
+the same batches, forwards its own rows of each (``parallel.shard_rows``)
+and gathers the batch's probabilities back (``parallel.fetch``), so every
+process ends with every tile's probabilities; the pair fusion splits its
+entries over the processes.
 """
 
 from __future__ import annotations
@@ -31,6 +38,13 @@ from pointstowood_tpu_torch.data.dataset import TileBatcher
 from pointstowood_tpu_torch.data.tiling import Tile, xyz_of
 from pointstowood_tpu_torch.model import Net
 from pointstowood_tpu_torch.ops.voxel import check_voxel_pack_range
+from pointstowood_tpu_torch.parallel.mesh import (
+    DataGroup,
+    fetch,
+    round_batch_size,
+    shard_rows,
+    spans_processes,
+)
 from pointstowood_tpu_torch.predict import device_fusion
 from pointstowood_tpu_torch.predict.fusion import (
     NBRS_CACHE,
@@ -67,11 +81,15 @@ def forward_probs(net: Net, pos, refl, mask, sf) -> torch.Tensor:
         return torch.sigmoid(torch.nan_to_num(net(pos, refl, mask, sf)))
 
 
-def tile_batcher(tiles, predict_cfg, tiling_cfg) -> TileBatcher:
+def tile_batcher(tiles, predict_cfg, tiling_cfg,
+                 group: DataGroup | None = None) -> TileBatcher:
     """The batcher ``run_inference`` iterates: bucketed capacities with
-    scaled batch sizes, deterministic order."""
+    scaled batch sizes, deterministic order. Under ``group`` the batch
+    size is rounded to a multiple of the number of processes (the JAX
+    package's rule), which every scaled batch size keeps: each is a
+    multiple of it."""
     return TileBatcher(
-        tiles, batch_size=predict_cfg.batch_size,
+        tiles, batch_size=round_batch_size(predict_cfg.batch_size, group),
         min_pts=tiling_cfg.min_pts, max_pts=tiling_cfg.max_pts,
         capacity_step=2, scale_batch=True,
     )
@@ -85,6 +103,7 @@ def run_inference(
     device=None,
     sink: device_fusion.FlatSink | None = None,
     with_readback: bool = True,
+    group: DataGroup | None = None,
 ) -> np.ndarray | None:
     """Classify all tiles; returns (M, 5) float64 rows [x, y, z, pred,
     prob] for every valid tile point, tiles in batcher order (reference
@@ -95,10 +114,19 @@ def run_inference(
     ``sink``: a ``device_fusion.FlatSink`` that receives each batch's
     device positions and probabilities as they are produced. With
     ``with_readback=False`` nothing is read back (the device pair path
-    never needs the classified rows) and the function returns None."""
+    never needs the classified rows) and the function returns None.
+
+    ``group``: this process forwards its rows of every batch and gathers
+    the batch's probabilities from the others, so it returns every row,
+    as one process would. A sink cannot hold the other processes' rows
+    (as in the JAX package): it is refused under a group."""
     dev = resolve_device(device)
     check_voxel_pack_range(max(tiling_cfg.grid_size), min(net.sa_resolutions))
-    batcher = tile_batcher(tiles, predict_cfg, tiling_cfg)
+    if sink is not None and spans_processes(group):
+        raise ValueError("run_inference: a FlatSink takes one process's "
+                         "batches; under a data group fuse from the "
+                         "gathered rows (device_fusion.layout_tight)")
+    batcher = tile_batcher(tiles, predict_cfg, tiling_cfg, group)
     outputs = []
     pending = []  # (device probs, host batch)
 
@@ -118,8 +146,9 @@ def run_inference(
         n_batches += 1
         pos, refl, mask, sf = (
             torch.from_numpy(a).to(dev, non_blocking=True)
-            for a in (batch.pos, batch.reflectance, batch.mask, batch.sf))
-        probs_dev = forward_probs(net, pos, refl, mask, sf)
+            for a in shard_rows(group, batch.pos, batch.reflectance,
+                                batch.mask, batch.sf))
+        probs_dev = fetch(group, forward_probs(net, pos, refl, mask, sf))
         if sink is not None:
             sink.write(pos, batch.shift, probs_dev)
         if with_readback:
@@ -150,6 +179,7 @@ def semantic_segmentation(
     profile_dir: str | None = None,
     device=None,
     timings: dict | None = None,
+    group: DataGroup | None = None,
 ) -> dict:
     """Classify the tiles and fuse the predictions onto every row of the
     column table ``pc``; returns a new table with ``label`` and ``pwood``
@@ -178,14 +208,23 @@ def semantic_segmentation(
     there. ``timings`` (optional dict) receives per-phase seconds:
     ``model``, ``fusion_plan`` (worker thread, overlapped with the model;
     pair and host paths), ``fusion_wait``, ``fusion_index`` (index path)
-    and ``fusion``."""
+    and ``fusion``.
+
+    ``group`` (a ``parallel.DataGroup``): every process classifies its
+    rows of every batch and gathers the rest (``run_inference``). The
+    pair path then fuses from the gathered probabilities in the tight
+    host-upload layout (``device_fusion.layout_tight``; the JAX package
+    takes it too, its FlatSink holding one process's rows), each process
+    selecting over its share of the entries and gathering the codes; the
+    index and host paths run whole on every process. Every process
+    returns the same table."""
     dev = resolve_device(device)
     timings = {} if timings is None else timings
     cluster_features = tiling_cfg.cluster_features
     mode = predict_cfg.fusion
     if mode not in ("auto", "host", "tpu"):
         raise ValueError(f"unknown fusion mode {mode!r}")
-    batcher = tile_batcher(tiles, predict_cfg, tiling_cfg)
+    batcher = tile_batcher(tiles, predict_cfg, tiling_cfg, group)
     order = batcher.tile_order()
     query_xyz = xyz_of(pc)
     k = min(64 if predict_cfg.any_wood == 1 else 32,
@@ -205,8 +244,12 @@ def semantic_segmentation(
         path = "index"
     else:
         path = "host"
-    sink = (device_fusion.sink_for(tiles, batcher, dev) if path == "pair"
-            else None)
+    sink = layout = None
+    if path == "pair" and not spans_processes(group):
+        sink = device_fusion.sink_for(tiles, batcher, dev)
+        layout = sink.layout
+    elif path == "pair":
+        layout = device_fusion.layout_tight(tiles, order)
 
     def source_xyz():
         return np.concatenate([tiles[ti].points[:, :3] for ti in order])
@@ -215,7 +258,7 @@ def semantic_segmentation(
         t = time.perf_counter()
         if path == "pair":
             out = device_fusion.plan_fusion(
-                tiles, query_xyz, tiling_cfg.min_pts, sink.layout,
+                tiles, query_xyz, tiling_cfg.min_pts, layout,
                 cluster_features=cluster_features)
         elif path == "host":
             out = knn_indices(source_xyz(), query_xyz, k)
@@ -238,7 +281,7 @@ def semantic_segmentation(
         with ctx as prof:
             classified = run_inference(
                 tiles, net, predict_cfg, tiling_cfg, device=dev, sink=sink,
-                with_readback=sink is None)
+                with_readback=sink is None, group=group)
             _sync(dev)
         t1 = time.perf_counter()
         if profile_dir:
@@ -257,12 +300,17 @@ def semantic_segmentation(
     fusion = Fusion(predict_cfg.is_wood, predict_cfg.any_wood, device=dev)
     n_host = 0
     if path == "pair":
+        resident = (sink.arrays() if sink is not None else
+                    device_fusion.resident_tight(tiles, order, layout,
+                                                 classified[:, 4], dev))
         fused = device_fusion.fuse_on_device(
-            prep, sink.arrays(), query_xyz, predict_cfg.is_wood,
+            prep, resident, query_xyz, predict_cfg.is_wood,
             predict_cfg.any_wood, verbose=verbose, device=dev,
-            timings=timings)
+            timings=timings, group=group)
         out = fusion.collect_predictions(None, pc, fused=fused)
-        how = "device pair path (pair_select kernel + torch median/vote)"
+        how = "device pair path (pair_select kernel + torch median/vote"
+        how += (")" if not spans_processes(group) else
+                f"; entries split over {group.world_size} processes)")
     elif path == "index":
         indices, n_host = device_fusion.fusion_indices(
             tiles, order, source_xyz(), query_xyz, k, tiling_cfg.min_pts,

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from pointstowood_tpu_torch.parallel.mesh import all_reduce_sum_
+
 
 def _clip(x: torch.Tensor, lo: float | None = None,
           hi: float | None = None) -> torch.Tensor:
@@ -43,8 +45,16 @@ def poly1_focal_loss(
     mask: torch.Tensor | None = None,
     reduction: str = "mean",
     eps: float = 1e-6,
+    group=None,
 ):
-    """Returns (loss, gamma) like the reference forward (loss.py:79)."""
+    """Returns (loss, gamma) like the reference forward (loss.py:79).
+
+    ``group`` (a ``parallel.DataGroup``; with ``mask`` and
+    ``reduction="mean"``): ``logits`` are this process's rows of a global
+    batch, and the masked mean divides this process's sum by the global
+    batch's count of valid points. The processes' losses then add up to
+    the global batch's, and so do their gradients (the trainer sums
+    them, as the JAX package's partitioner does)."""
     logits = _clip(logits.float(), -10.0, 10.0)
     labels = labels.float()
     if label_smoothing is not None:
@@ -65,7 +75,8 @@ def poly1_focal_loss(
     if mask is not None:
         m = mask.to(loss.dtype)
         if reduction == "mean":
-            loss = torch.sum(loss * m) / _clip(torch.sum(m), 1.0)
+            count = all_reduce_sum_(group, torch.sum(m))
+            loss = torch.sum(loss * m) / _clip(count, 1.0)
         elif reduction == "sum":
             loss = torch.sum(loss * m)
         else:

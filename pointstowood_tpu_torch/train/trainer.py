@@ -23,9 +23,15 @@ As in the JAX package:
   * after training, the BatchNorm statistics are re-estimated under the
     eval sampling (see ``make_stats_step``).
 
-Single device: the JAX package's data mesh is not ported. Parameters,
-BatchNorm statistics and optimizer state live in the ``Net`` and the
-optimizer and are updated in place.
+Parameters, BatchNorm statistics and optimizer state live in the ``Net``
+and the optimizer and are updated in place. Data parallelism (the JAX
+package's ``mesh=``) is ``group=``, a ``parallel.DataGroup``: every
+process builds the same shuffled global batch and uploads its own rows;
+the BatchNorm statistics, the training centres, the loss's count of
+valid points and the metrics are the global batch's, and the gradients
+are summed over the group in one flat bucket before the finite guard and
+the clip, so every process takes the same step and holds the same
+parameters (``parallel/mesh.py``). Only process 0 writes files.
 """
 
 from __future__ import annotations
@@ -43,7 +49,16 @@ from pointstowood_tpu_torch.config import ModelConfig, TilingConfig, TrainConfig
 from pointstowood_tpu_torch.data.dataset import TileBatcher
 from pointstowood_tpu_torch.data.tiling import Tile
 from pointstowood_tpu_torch.model import Net
+from pointstowood_tpu_torch.model.layers import set_data_group
 from pointstowood_tpu_torch.ops.voxel import check_voxel_pack_range
+from pointstowood_tpu_torch.parallel.mesh import (
+    DataGroup,
+    all_reduce_sum_,
+    is_primary,
+    round_batch_size,
+    shard_rows,
+    spans_processes,
+)
 from pointstowood_tpu_torch.predict.predicter import build_net
 from pointstowood_tpu_torch.train.augmentation import augment_tile
 from pointstowood_tpu_torch.train.loss import poly1_focal_loss
@@ -131,14 +146,21 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor],
 
 
 def make_train_step(net: Net, optimizer: torch.optim.Optimizer,
-                    loss_cfg: TrainConfig):
+                    loss_cfg: TrainConfig, group: DataGroup | None = None):
     """One training step over a padded batch: forward with random 50%
     centres and masked batch statistics, Poly1 focal loss, backward, the
     finite guard, clipping and the AdamW update, all in place.
 
     train_step(pos, refl, mask, sf, labels, lr, generator) -> (loss,
     counts, finite): the loss (0-d tensor), the (tp, fp, tn, fn) counts of
-    the batch's predictions, and whether the update was applied."""
+    the batch's predictions, and whether the update was applied.
+
+    ``group``: the inputs are this process's rows of the global batch
+    (``parallel.shard_rows``) and ``net`` takes its statistics over the
+    group (``set_data_group``); the gradients, loss and counts are summed
+    over the group in one collective, so the finite guard and the clip
+    read the global gradients and every process applies the same
+    update."""
     params = list(net.parameters())
     buffers = [b for _, b in net.named_buffers()]
 
@@ -151,7 +173,7 @@ def make_train_step(net: Net, optimizer: torch.optim.Optimizer,
             logits, labels, epsilon=loss_cfg.poly_epsilon,
             gamma=loss_cfg.focal_gamma, alpha=None,
             label_smoothing=loss_cfg.label_smoothing, mask=mask,
-            reduction="mean")
+            reduction="mean", group=group)
         loss.backward()
         for p in params:
             # parameters off the graph (the ReflectanceGate) get a zero
@@ -159,21 +181,34 @@ def make_train_step(net: Net, optimizer: torch.optim.Optimizer,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        with torch.no_grad():
+            preds = (torch.sigmoid(logits) >= 0.5).float()
+            counts = binary_counts(preds, labels, mask)
+        loss = loss.detach()
+        if spans_processes(group):
+            # one bucket: every gradient, the loss and the counts, summed
+            # in float64 (exact for two float32 shares, and rounded once
+            # for more, so a gradient that the shares' signs cancel keeps
+            # the one process's precision)
+            flat = all_reduce_sum_(group, torch.cat(
+                [g.reshape(-1) for g in grads] + [loss.reshape(1), counts])
+                .double())
+            for g, part in zip(grads, flat.split([g.numel() for g in grads]
+                                                 + [1, 4])):
+                g.copy_(part.view_as(g))
+            loss, counts = flat[-5].float(), flat[-4:].float()
         finite = torch.stack([torch.isfinite(loss)]
                              + [torch.isfinite(g).all() for g in grads]).all()
         if bool(finite):
             clip_by_global_norm_(grads, loss_cfg.grad_clip_norm)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
+            for param_group in optimizer.param_groups:
+                param_group["lr"] = lr
             optimizer.step()
         else:
             with torch.no_grad():
                 for b, s in zip(buffers, saved):
                     b.copy_(s)
-        with torch.no_grad():
-            preds = (torch.sigmoid(logits) >= 0.5).float()
-            counts = binary_counts(preds, labels, mask)
-        return loss.detach(), counts, bool(finite)
+        return loss, counts, bool(finite)
 
     return train_step
 
@@ -199,20 +234,24 @@ def make_stats_step(net: Net):
     return stats_step
 
 
-def _batch_arrays(batch, device: torch.device):
-    """The batch's arrays as tensors on ``device``."""
-    arrays = (batch.pos, batch.reflectance, batch.mask, batch.sf,
-              batch.labels)
-    return tuple(torch.from_numpy(np.asarray(a)).to(device, non_blocking=True)
-                 for a in arrays)
+def _batch_arrays(batch, device: torch.device,
+                  group: DataGroup | None = None):
+    """The batch's arrays as tensors on ``device``: this process's rows of
+    them under ``group``."""
+    arrays = shard_rows(group, batch.pos, batch.reflectance, batch.mask,
+                        batch.sf, batch.labels)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+        device, non_blocking=True) for a in arrays)
 
 
 def recalibrate_batch_stats(net: Net, tiles, cfg: TrainConfig,
                             tiling_cfg: TilingConfig, passes: int = 3,
-                            stats_step=None, device=None) -> None:
+                            stats_step=None, device=None,
+                            group: DataGroup | None = None) -> None:
     """EMA the BN running stats of ``net`` in place under eval-path
     forwards (see make_stats_step). A few shuffled passes give the
-    momentum-0.1 EMA a >=30-batch horizon on typical tile counts."""
+    momentum-0.1 EMA a >=30-batch horizon on typical tile counts. Under
+    ``group`` each process forwards its rows of every batch."""
     dev = resolve_device(device)
     if stats_step is None:
         stats_step = make_stats_step(net)
@@ -224,16 +263,18 @@ def recalibrate_batch_stats(net: Net, tiles, cfg: TrainConfig,
             bucket=False,
         )
         for _, batch, _ in batcher:
-            pos, refl, mask, sf, _ = _batch_arrays(batch, dev)
+            pos, refl, mask, sf, _ = _batch_arrays(batch, dev, group)
             stats_step(pos, refl, mask, sf)
 
 
-def make_eval_step(net: Net):
+def make_eval_step(net: Net, group: DataGroup | None = None):
+    """eval_step(pos, refl, mask, sf, labels) -> the (tp, fp, tn, fn)
+    counts of the batch (of the global batch under ``group``)."""
     def eval_step(pos, refl, mask, sf, labels):
         with torch.no_grad():
             logits = net(pos, refl, mask, sf, training=False)
             preds = (torch.sigmoid(logits) >= 0.5).float()
-            return binary_counts(preds, labels, mask)
+            return all_reduce_sum_(group, binary_counts(preds, labels, mask))
 
     return eval_step
 
@@ -251,9 +292,19 @@ def semantic_training(
     verbose: bool = False,
     log_fn: Callable[[str], None] = print,
     device=None,
+    group: DataGroup | None = None,
 ):
     """Run the full training loop on ``device`` (default CUDA); returns
     the final TrainState and the history.
+
+    ``group`` (a ``parallel.DataGroup``, the counterpart of the JAX
+    package's ``mesh=``): every process runs this loop on the same tiles
+    and the same seeded, shuffled global batches, and forwards its rows
+    of each; batch sizes are rounded to a multiple of the number of
+    processes (padding tiles are all-masked, so metrics and BatchNorm
+    statistics are unaffected). Parameters, statistics, optimizer state
+    and history come out the same on every process; only process 0
+    writes checkpoints and the history.
 
     History rows match the reference CSV layout (trainer.py:256-267):
     [epoch, lr, train_loss, train_ba, train_f1, train_precision,
@@ -264,29 +315,50 @@ def semantic_training(
     <model_name>`` and ``<wdir>/checkpoints/epoch_<n>`` with its suffix.
     An existing ``<wdir>/model/<model_name>`` is resumed from."""
     dev = resolve_device(device)
-    net = build_train_net(model_cfg, cfg.seed, device=dev)
+    net = set_data_group(build_train_net(model_cfg, cfg.seed, device=dev),
+                         group)
     check_voxel_pack_range(max(tiling_cfg.grid_size), min(net.sa_resolutions))
     eval_batch_size = max(cfg.batch_size // 2, 1)
+    if group is not None:
+        bs = round_batch_size(cfg.batch_size, group)
+        if bs != cfg.batch_size:
+            log_fn(f"Rounding batch_size {cfg.batch_size} -> {bs} "
+                   f"({group.world_size} processes)")
+            cfg = dataclasses.replace(cfg, batch_size=bs)
+        w = group.world_size
+        eval_batch_size = max(cfg.batch_size // 2, w) // w * w
+
+    # one process writes (the others hold the same state)
+    primary = is_primary(group)
+
+    def save_ckpt(path, module):
+        if primary:
+            save_checkpoint(path, module)
 
     model_path = os.path.join(wdir, "model", model_name)
-    os.makedirs(os.path.join(wdir, "model"), exist_ok=True)
-    if os.path.isfile(model_path):
+    if primary:
+        os.makedirs(os.path.join(wdir, "model"), exist_ok=True)
+    # every process looks before process 0 may write the file
+    found = os.path.isfile(model_path)
+    if spans_processes(group):
+        torch.distributed.barrier(group=group.process_group)
+    if found:
         log_fn("Loading model")
         try:
             load_checkpoint(model_path, net)
         except (RuntimeError, ValueError, KeyError, EOFError) as e:
             # the reference creates a fresh file when the load fails
             log_fn(f"Failed to load ({e}), creating new...")
-            save_checkpoint(model_path, net)
+            save_ckpt(model_path, net)
     else:
         log_fn("\nModel not found, creating new file...")
-        save_checkpoint(model_path, net)
+        save_ckpt(model_path, net)
 
     optimizer = make_optimizer(net, cfg)
     n_params = sum(p.numel() for p in net.parameters())
     log_fn(f"Model contains {n_params} parameters")
-    train_step = make_train_step(net, optimizer, cfg)
-    eval_step = make_eval_step(net)
+    train_step = make_train_step(net, optimizer, cfg, group)
+    eval_step = make_eval_step(net, group)
 
     if use_wandb:
         import wandb
@@ -324,8 +396,8 @@ def semantic_training(
             snapshot = {k: v.clone() for k, v in net.state_dict().items()}
             recalibrate_batch_stats(net, calib_tiles, cfg, tiling_cfg,
                                     passes=1, stats_step=stats_step,
-                                    device=dev)
-            save_checkpoint(p, net)
+                                    device=dev, group=group)
+            save_ckpt(p, net)
             net.load_state_dict(snapshot)
             # remember for the end-of-run full BN recalibration re-save
             best_snapshots[path_prefix] = snapshot
@@ -346,7 +418,7 @@ def semantic_training(
                 "balanced_accuracy": 0.0, "f1": 0.0}
         n_batches = 0
         for _, batch, _ in batcher:
-            pos, refl, mask, sf, labels = _batch_arrays(batch, dev)
+            pos, refl, mask, sf, labels = _batch_arrays(batch, dev, group)
             loss, counts, finite = train_step(pos, refl, mask, sf, labels,
                                               lr, sample_gen)
             if not finite:
@@ -383,7 +455,8 @@ def semantic_training(
                 bucket=False,
             )
             for _, batch, _ in tbatcher:
-                pos, refl, mask, sf, labels = _batch_arrays(batch, dev)
+                pos, refl, mask, sf, labels = _batch_arrays(batch, dev,
+                                                            group)
                 m = batch_metrics(eval_step(pos, refl, mask, sf, labels))
                 for k in tsums:
                     tsums[k] += m[k]
@@ -399,12 +472,13 @@ def semantic_training(
         hist_path = os.path.join(
             wdir, "model", os.path.splitext(model_name)[0] + "_history.csv"
         )
-        try:
-            np.savetxt(hist_path, np.asarray(history))
-        except OSError:
-            np.savetxt(hist_path + ".backup", np.asarray(history))
+        if primary:
+            try:
+                np.savetxt(hist_path, np.asarray(history))
+            except OSError:
+                np.savetxt(hist_path + ".backup", np.asarray(history))
 
-        if epoch in set(int(c) for c in checkpoints):
+        if epoch in set(int(c) for c in checkpoints) and primary:
             ckpt_dir = os.path.join(wdir, "checkpoints")
             os.makedirs(ckpt_dir, exist_ok=True)
             suffix = os.path.splitext(model_name)[1]
@@ -433,9 +507,10 @@ def semantic_training(
         if epoch == cfg.num_epochs:
             log_fn("Recalibrating BatchNorm statistics under the eval path")
             recalibrate_batch_stats(net, train_tiles, cfg, tiling_cfg,
-                                    stats_step=stats_step, device=dev)
+                                    stats_step=stats_step, device=dev,
+                                    group=group)
             log_fn("Saving final GLOBAL model")
-            save_checkpoint(model_path, net)
+            save_ckpt(model_path, net)
             # re-save the rolling best checkpoints with their own
             # recalibrated statistics
             final = {k: v.clone() for k, v in net.state_dict().items()}
@@ -443,11 +518,11 @@ def semantic_training(
                 net.load_state_dict(snapshot)
                 recalibrate_batch_stats(net, train_tiles, cfg, tiling_cfg,
                                         passes=2, stats_step=stats_step,
-                                        device=dev)
+                                        device=dev, group=group)
                 p = os.path.join(
                     wdir, "model", prefix + os.path.basename(model_name)
                 )
-                save_checkpoint(p, net)
+                save_ckpt(p, net)
                 log_fn(f"Re-saved {p} with recalibrated BN statistics")
             net.load_state_dict(final)
 

@@ -15,3 +15,11 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+def pin_cuda_device(index: int) -> torch.device:
+    """Make ``cuda:index`` this process's current card, so that
+    ``resolve_device()`` (``cuda``) and every default CUDA tensor and
+    generator land there: one card per process of a data-parallel run."""
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)

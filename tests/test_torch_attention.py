@@ -6,7 +6,8 @@ variables carried across by ``state_dict_from_flax``).
 * ``PositionalEncoding``, ``AdaptiveBlending`` and ``AttentivePointConv``
   (batch statistics with their running update, running averages, SA1's
   radius cap, neighbourhoods with no valid slot giving zeros) against the
-  flax modules within 1e-5.
+  flax modules within 1e-5 (``PositionalEncoding`` also against the
+  float64 formula, and against JAX's computed in a fresh process).
 * ``ATSearchKNN``'s neighbour sets (exact and fast routes) equal JAX's
   exact sets except near-ties: pairs whose d2 in the port's embedding
   lies within 1e-6 of the k-th d2. JAX's own fast route ranks by a
@@ -28,6 +29,7 @@ variables carried across by ``state_dict_from_flax``).
 """
 
 import functools
+import warnings
 
 import numpy as np
 import pytest
@@ -126,16 +128,78 @@ def test_band_frequencies_follow_jnp_linspace():
         np.testing.assert_array_max_ulp(f, np.asarray(ref), maxulp=2)
 
 
-@pytest.mark.parametrize("d_model", [18, 66, 130])
-def test_positional_encoding_matches_jax(d_model):
-    """Unscaled tile coordinates up to 3 m: sin/cos of up to 30 rad."""
+PE_MODELS = (18, 66, 130)
+
+# JAX's PositionalEncoding in a fresh interpreter: in one run of the whole
+# suite (six workers, each importing every test file and running others
+# before this one), the in-process jitted reference of d_model = 18 lay
+# 1.5e-4 from the port at 375 of 1800 elements, though both lie within
+# 4e-7 of the float64 formula in a fresh process, and neither moved when
+# this file ran after any one of the files that ran before it in that
+# worker. A reference computed in its own process sees none of that state.
+_PE_REFERENCE = """
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+from pointstowood_tpu.model import attention as j_att
+out = {}
+for d in map(int, sys.argv[2:]):
+    xyz = np.random.default_rng(d).uniform(-3, 3, (2, 50, 3)).astype(
+        np.float32)
+    mod = j_att.PositionalEncoding(d)
+    out[str(d)] = np.asarray(jax.jit(lambda x: mod.apply({}, x))(xyz))
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def positional_encoding_refs(tmp_path_factory):
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = str(tmp_path_factory.mktemp("pe") / "refs.npz")
+    subprocess.run([sys.executable, "-c", _PE_REFERENCE, path,
+                    *map(str, PE_MODELS)], check=True, timeout=300,
+                   env=dict(os.environ, JAX_PLATFORMS="cpu",
+                            PYTHONPATH=repo))
+    with np.load(path) as f:
+        return {int(k): f[k] for k in f.files}
+
+
+@pytest.mark.parametrize("d_model", PE_MODELS)
+def test_positional_encoding_matches_jax(d_model, positional_encoding_refs,
+                                        record_property):
+    """Unscaled tile coordinates up to 3 m: sin/cos of up to 30 rad. The
+    port within 1e-5 of JAX's (computed in a fresh process, see
+    ``_PE_REFERENCE``) and of the float64 formula; a miss reports each
+    side's distance from the formula, the in-process JAX value's too. The
+    in-process JAX value's distance is recorded on every run (a junit
+    property) and warned about past 1e-5, so that a recurrence of the
+    drift names the side that moved."""
     xyz = np.random.default_rng(d_model).uniform(
         -3, 3, (2, 50, 3)).astype(np.float32)
-    mod = j_att.PositionalEncoding(d_model)
-    ref = np.asarray(jax.jit(lambda x: mod.apply({}, x))(xyz))
+    ref = positional_encoding_refs[d_model]
     got = t_att.PositionalEncoding(d_model)(torch.from_numpy(xyz)).numpy()
     assert got.shape == ref.shape == (2, 50, d_model)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    x_freq = xyz.astype(np.float64)[..., None] * np.linspace(1.0, 10.0, 64)
+    oracle = np.stack([np.sin(x_freq), np.cos(x_freq)], -1).reshape(
+        2, 50, -1)[..., :d_model]
+    mod = j_att.PositionalEncoding(d_model)
+    here = np.asarray(jax.jit(lambda x: mod.apply({}, x))(xyz))
+    msg = (f"max |delta| against the float64 formula: port "
+           f"{np.abs(got - oracle).max():.3g}, JAX (fresh process) "
+           f"{np.abs(ref - oracle).max():.3g}, JAX (this process) "
+           f"{np.abs(here - oracle).max():.3g}")
+    here_err = float(np.abs(here - oracle).max())
+    record_property("jax_in_process_max_abs_vs_formula", here_err)
+    if here_err > 1e-5:
+        warnings.warn(f"PositionalEncoding({d_model}): JAX in this process "
+                      f"moved from the float64 formula; {msg}")
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5, err_msg=msg)
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=1e-5, err_msg=msg)
 
 
 def test_adaptive_blending_matches_jax():

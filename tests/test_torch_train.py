@@ -203,7 +203,9 @@ def _jax_rule(rng, mask, capacity, fraction=0.5):
     return j_sampling.compact_indices(select, capacity)
 
 
-def _port_rule(mask, capacity, generator, fraction=0.5):
+def _port_rule(mask, capacity, generator, fraction=0.5, group=None):
+    """``_jax_rule`` for the port's ``random_sample`` signature; a row's
+    centres depend on that row alone, so a data group changes nothing."""
     n = mask.shape[1]
     n_take = torch.clamp((mask.sum(-1) * fraction).long(), max=capacity)
     score = torch.where(mask, torch.from_numpy(_scores(n)), torch.inf)
