@@ -16,6 +16,12 @@ reference-layout ``.pth`` or the JAX package's flax msgpack ``.ckpt``
 Runs on CUDA. ``main(argv, device="cpu")`` runs the plain PyTorch
 versions on the CPU instead (for tests); there is no device flag.
 
+``--profile DIR`` turns the port's tracer (``utils/trace.py``) on for the
+whole call and writes two Chrome traces to DIR: ``model_phase.json``,
+the ``torch.profiler`` trace of the (last) plot's model phase, and
+``program_spans.json``, every thread's spans and counters (ingest and
+write thread, fusion plan thread, main thread) on that trace's clock.
+
 Data parallelism: launch one process per card with torchrun or with the
 JAX package's variables (``PTW_COORDINATOR_ADDRESS``,
 ``PTW_NUM_PROCESSES``, ``PTW_PROCESS_ID``); every process tiles the
@@ -32,7 +38,6 @@ import datetime
 import os
 import os.path as OP
 import resource
-import time
 
 
 def parse_args(argv=None):
@@ -85,8 +90,11 @@ def parse_args(argv=None):
                              'host search; auto takes a device path when the '
                              'tiling allows it')
     parser.add_argument('--profile', type=str, default=None,
-                        help='write a torch.profiler trace of the model phase '
-                             'to this directory')
+                        help='trace the whole call and write to this '
+                             'directory a torch.profiler trace of the model '
+                             'phase (model_phase.json) and the spans and '
+                             'counters of every thread on its clock '
+                             '(program_spans.json)')
     parser.add_argument('--verbose', action='store_true', help='print stuff')
     return parser.parse_args(argv)
 
@@ -103,15 +111,30 @@ def resolve_model_path(model: str) -> str:
 def main(argv=None, device=None):
     """Run the CLI; returns one record per input file: the output path,
     point count, and per-phase wall seconds (read, preprocess, model,
-    fusion_plan, fusion, write). ``device`` defaults to CUDA."""
-    start = datetime.datetime.now()
+    fusion_plan, fusion_wait, fusion_index, fusion, write). ``device``
+    defaults to CUDA."""
+    from pointstowood_tpu_torch.utils import trace
+
     args = parse_args(argv)
+    with trace.session() if args.profile else trace.entry():
+        records = _run(args, device)
+        if args.profile:
+            os.makedirs(args.profile, exist_ok=True)
+            trace.write_chrome(
+                os.path.join(args.profile, 'program_spans.json'),
+                beside=os.path.join(args.profile, 'model_phase.json'))
+    return records
+
+
+def _run(args, device):
+    start = datetime.datetime.now()
 
     from pointstowood_tpu_torch.parallel.mesh import (
         data_group,
         is_primary,
         maybe_init_distributed,
     )
+    from pointstowood_tpu_torch.utils import trace
     from pointstowood_tpu_torch.utils.device import resolve_device
 
     # the process group first (no-op without launch variables); on CUDA it
@@ -167,30 +190,34 @@ def main(argv=None, device=None):
     model_path = resolve_model_path(args.model)
     net = load_checkpoint(model_path, build_net(model_cfg, device=dev))
 
-    def _prep(path_in):
+    def _prep(path_in, plot, parent):
         """Host-side ingest of one plot (read + canonicalize + tiling)."""
         print(f'Voxelising to {list(args.grid_size)} grid sizes')
-        t0 = time.perf_counter()
-        pc, headers = load_file(path_in, additional_headers=True)
-        t1 = time.perf_counter()
-        pc, headers, _ = canonicalize_columns(pc, mode='predict')
-        tiles = preprocess_cloud(pc, tiling_cfg, with_labels=False,
-                                 vxdir=args.vxdir)
-        return pc, headers, tiles, {'read': t1 - t0,
-                                    'preprocess': time.perf_counter() - t1}
+        seconds = {}
+        with trace.span('ingest', parent=parent, request=plot):
+            with trace.timed(seconds, 'read', 'ingest.read'):
+                pc, headers = load_file(path_in, additional_headers=True)
+            with trace.timed(seconds, 'preprocess'):
+                with trace.span('ingest.canonicalize'):
+                    pc, headers, _ = canonicalize_columns(pc, mode='predict')
+                tiles = preprocess_cloud(pc, tiling_cfg, with_labels=False,
+                                         vxdir=args.vxdir)
+        return pc, headers, tiles, seconds
 
-    def _save(out_path, pc, hdrs, record):
-        t0 = time.perf_counter()
-        save_file(out_path, pc, additional_fields=hdrs, verbose=False)
-        record['seconds']['write'] = time.perf_counter() - t0
+    def _save(out_path, pc, hdrs, record, plot, parent):
+        with trace.timed(record['seconds'], 'write', parent=parent,
+                         request=plot):
+            save_file(out_path, pc, additional_fields=hdrs, verbose=False)
         print(f'Saved {out_path}')
 
     # while plot N runs on the device, one worker thread ingests plot N+1
     # and writes plot N-1's output
     records = []
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+    with trace.span('predict', plots=len(args.point_cloud)), \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+        call = trace.current()
         saves = []
-        nxt = ex.submit(_prep, args.point_cloud[0])
+        nxt = ex.submit(_prep, args.point_cloud[0], 0, call)
         for i, point_cloud_file in enumerate(args.point_cloud):
             out_path = OP.join(
                 OP.dirname(point_cloud_file),
@@ -198,9 +225,10 @@ def main(argv=None, device=None):
 
             if args.verbose:
                 print('\n----- Preprocessing started -----')
-            pc, headers, tiles, seconds = nxt.result()
+            with trace.span('ingest.wait', request=i):
+                pc, headers, tiles, seconds = nxt.result()
             if i + 1 < len(args.point_cloud):
-                nxt = ex.submit(_prep, args.point_cloud[i + 1])
+                nxt = ex.submit(_prep, args.point_cloud[i + 1], i + 1, call)
 
             if args.verbose:
                 rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
@@ -208,11 +236,12 @@ def main(argv=None, device=None):
                 print(f'runtime: {(datetime.datetime.now() - start).seconds}')
                 print('\n----- Semantic segmentation started -----')
 
-            pc = semantic_segmentation(
-                pc, tiles, net, predict_cfg, tiling_cfg,
-                verbose=args.verbose, profile_dir=args.profile, device=dev,
-                timings=seconds, group=group,
-            )
+            with trace.span('plot', request=i, points=n_rows(pc)):
+                pc = semantic_segmentation(
+                    pc, tiles, net, predict_cfg, tiling_cfg,
+                    verbose=args.verbose, profile_dir=args.profile,
+                    device=dev, timings=seconds, group=group,
+                )
             record = {'input': point_cloud_file, 'output': out_path,
                       'points': n_rows(pc), 'tiles': len(tiles),
                       'seconds': seconds}
@@ -222,7 +251,7 @@ def main(argv=None, device=None):
             # one writer per (shared) filesystem
             if is_primary(group):
                 saves.append(ex.submit(_save, out_path, pc, out_headers,
-                                       record))
+                                       record, i, call))
 
             if args.verbose:
                 rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6

@@ -20,6 +20,7 @@ from typing import Iterator, List, Sequence
 import numpy as np
 
 from pointstowood_tpu_torch.data.tiling import Tile
+from pointstowood_tpu_torch.utils import trace
 
 
 def bucket_capacities(min_pts: int, max_pts: int, step: int = 8,
@@ -219,19 +220,27 @@ class TileBatcher:
                    for c, n in counts.items())
 
     def _emit(self, chunk, rng, cap=None, b_size=None):
-        arrays = []
-        for ti in chunk:
-            pts = self.tiles[ti].points
-            if self.augment is not None:
-                pts = self.augment(pts, rng)
-            arrays.append(pts)
-        if cap is None:  # mixed mode: pad to the largest member's bucket
-            cap = self._capacity_for(max(a.shape[0] for a in arrays))
-        # pad batch dim with empty tiles for a static B
-        n_pad = (b_size or self.batch_size) - len(arrays)
-        width = arrays[0].shape[1]
-        arrays += [np.zeros((0, width), np.float32)] * n_pad
-        batch = pad_tiles(arrays, cap, with_labels=self.with_labels)
+        """One padded batch; traced as ``batch.pad`` with the counters
+        ``batch.points`` (valid rows) and ``batch.slots`` (rows x
+        capacity, empty rows included)."""
+        with trace.entry(), trace.span("batch.pad"):
+            arrays = []
+            for ti in chunk:
+                pts = self.tiles[ti].points
+                if self.augment is not None:
+                    pts = self.augment(pts, rng)
+                arrays.append(pts)
+            if cap is None:  # mixed mode: pad to the largest member's bucket
+                cap = self._capacity_for(max(a.shape[0] for a in arrays))
+            # pad batch dim with empty tiles for a static B
+            n_pad = (b_size or self.batch_size) - len(arrays)
+            width = arrays[0].shape[1]
+            arrays += [np.zeros((0, width), np.float32)] * n_pad
+            batch = pad_tiles(arrays, cap, with_labels=self.with_labels)
+            if trace.active():
+                trace.count("batch.points",
+                            sum(min(len(a), cap) for a in arrays))
+                trace.count("batch.slots", len(arrays) * cap)
         return cap, batch, list(chunk)
 
     def batch_plan(self) -> List[tuple]:

@@ -1,6 +1,7 @@
 """Host-side preprocessing: ground normalization, reflectance quantile
 normalization, and multi-scale voxel tiling (port of
-pointstowood_tpu/data/tiling.py on column tables, numpy only).
+pointstowood_tpu/data/tiling.py on column tables, numpy only; its
+steps are the tracer's ``ingest.*`` spans).
 
 Reimplements the reference Voxelise pipeline
 (reference: pointstowood/src/preprocessing.py:9-131) as vectorized numpy:
@@ -35,6 +36,7 @@ from pointstowood_tpu_torch.ops.normalization import (
     ground_normalize_np,
     quantile_normalize_np,
 )
+from pointstowood_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -151,14 +153,16 @@ def preprocess_cloud(
     rng = np.random.default_rng(seed)
     xyz_any = xyz_of(pc)
     if "n_z" not in pc:
-        pc["n_z"] = ground_normalize_np(xyz_any,
-                                        grid_resolution=config.ground_grid)
+        with trace.span("ingest.ground"):
+            pc["n_z"] = ground_normalize_np(
+                xyz_any, grid_resolution=config.ground_grid)
 
     xyz = xyz_any.astype(np.float32)
     refl = np.asarray(pc["reflectance"]).astype(np.float32)
     reflectance_not_zero = not np.all(refl == 0)
     if reflectance_not_zero:
-        refl = quantile_normalize_np(refl)
+        with trace.span("ingest.reflectance"):
+            refl = quantile_normalize_np(refl)
 
     columns = [xyz, refl[:, None]]
     if with_labels:
@@ -180,28 +184,28 @@ def preprocess_cloud(
 
     tiles: List[Tile] = []
     for size in config.grid_size:
-        for cid, cell_idx in _split_by_cell(cluster_arr, float(size)):
-            if cell_idx.shape[0] < config.min_pts:
-                continue
-            if cell_idx.shape[0] > config.max_pts:
-                if weight is not None:
-                    # Efraimidis-Spirakis keys: torch.multinomial's
-                    # weighted draw without replacement, vectorized
-                    w = weight[cell_idx]
-                    keys = np.log(rng.random(cell_idx.shape[0])) / w
-                    top = np.argpartition(keys, -config.max_pts)
-                    cell_idx = cell_idx[top[-config.max_pts:]]
-                else:
-                    cell_idx = cell_idx[
-                        rng.integers(0, cell_idx.shape[0], size=config.max_pts)
-                    ]
-            keep = ~np.isnan(data[cell_idx]).any(axis=1)
-            cell_idx = cell_idx[keep]
-            if cell_idx.shape[0] == 0:
-                continue
-            tiles.append(Tile(points=data[cell_idx], grid_size=float(size),
-                              cell_id=int(cid),
-                              indices=cell_idx.astype(np.int64)))
+        with trace.span("ingest.cells", scale=float(size)):
+            for cid, cell_idx in _split_by_cell(cluster_arr, float(size)):
+                if cell_idx.shape[0] < config.min_pts:
+                    continue
+                if cell_idx.shape[0] > config.max_pts:
+                    if weight is not None:
+                        # Efraimidis-Spirakis keys: torch.multinomial's
+                        # weighted draw without replacement, vectorized
+                        w = weight[cell_idx]
+                        keys = np.log(rng.random(cell_idx.shape[0])) / w
+                        top = np.argpartition(keys, -config.max_pts)
+                        cell_idx = cell_idx[top[-config.max_pts:]]
+                    else:
+                        cell_idx = cell_idx[rng.integers(
+                            0, cell_idx.shape[0], size=config.max_pts)]
+                keep = ~np.isnan(data[cell_idx]).any(axis=1)
+                cell_idx = cell_idx[keep]
+                if cell_idx.shape[0] == 0:
+                    continue
+                tiles.append(Tile(points=data[cell_idx],
+                                  grid_size=float(size), cell_id=int(cid),
+                                  indices=cell_idx.astype(np.int64)))
 
     if vxdir is not None:
         os.makedirs(vxdir, exist_ok=True)

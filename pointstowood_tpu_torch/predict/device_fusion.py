@@ -58,7 +58,6 @@ exact host search.
 
 from __future__ import annotations
 
-import time
 from typing import Sequence
 
 import numpy as np
@@ -73,6 +72,7 @@ from pointstowood_tpu_torch.ops.fusion_kernels import (
 from pointstowood_tpu_torch.ops.knn import knn_masked
 from pointstowood_tpu_torch.parallel.mesh import DataGroup, fetch
 from pointstowood_tpu_torch.predict.fusion import knn_indices
+from pointstowood_tpu_torch.utils import trace
 from pointstowood_tpu_torch.utils.device import resolve_device
 
 K_PER_SCALE = 32
@@ -386,7 +386,6 @@ def fuse_on_device(
     any_wood: float,
     verbose: bool = False,
     device=None,
-    timings: dict | None = None,
     group: DataGroup | None = None,
 ) -> np.ndarray:
     """Pair-path fusion on ``device`` (default CUDA): returns (N, 2)
@@ -394,9 +393,10 @@ def fuse_on_device(
 
     ``plan``: ``plan_fusion``'s plan over the FlatSink's layout (or
     ``layout_tight``); ``resident``: the layout's (xyz, probs) device
-    tensors (``FlatSink.arrays()``, ``resident_tight``). ``timings``
-    (optional dict) receives the seconds of the selection and vote
-    launches and of the readback. ``group``: every process holds the
+    tensors (``FlatSink.arrays()``, ``resident_tight``). Traced as
+    ``fusion.select`` (the selection and vote launches, enqueued) and
+    ``fusion.readback`` (which waits for them); ``verbose`` prints both.
+    ``group``: every process holds the
     same plan and resident arrays, selects over its contiguous share of
     the entries, and gathers the others' codes, so every process returns
     the whole result."""
@@ -405,42 +405,40 @@ def fuse_on_device(
     if verbose and plan.n_near:
         print(f"fusion: nearest-tile assignment for {plan.n_near} uncovered "
               f"(query, scale) rows")
-    t0 = time.perf_counter()
-    flat_xyz, flat_probs = resident
-    if flat_xyz.shape[0] != plan.layout.flat_len:
-        raise ValueError("resident arrays do not match the plan layout")
-    pay = quantize_payload(flat_probs)
-    queries, q_len, regions = entry_tensors(plan, query_xyz, dev)
-    n_e = plan.q_len.size
-    # this process's entries [lo, hi): all of them for one process
-    w = group.world_size if group is not None else 1
-    share = -(-n_e // w)
-    lo = 0 if group is None else min(n_e, group.rank * share)
-    hi = min(n_e, lo + share)
-    codes = torch.zeros(share * PAIR_QCHUNK, dtype=torch.int16, device=dev)
-    for e0 in range(lo, hi, ENTRIES_PER_LAUNCH):
-        e1 = min(hi, e0 + ENTRIES_PER_LAUNCH)
-        d2, sel = pair_select(queries[e0:e1], q_len[e0:e1], flat_xyz, pay,
-                              regions[e0:e1], k_out)
-        codes[(e0 - lo) * PAIR_QCHUNK:(e1 - lo) * PAIR_QCHUNK] = pair_vote(
-            d2, sel, q_len[e0:e1], is_wood, any_wood)
-    if w > 1:
-        # the shares are disjoint and in entry order (int32: gloo does
-        # not gather int16)
-        codes = fetch(group, codes.to(torch.int32)).to(torch.int16)
-    # one zero slot past the last for the rows no entry covers
-    codes = torch.cat([codes[:plan.n_slots], codes.new_zeros(1)])
-    t1 = time.perf_counter()
-    inv = torch.from_numpy(plan.query_slots()).to(dev)
-    pv = codes[inv].cpu().numpy().astype(np.int64)
-    t2 = time.perf_counter()
-    if timings is not None:
-        timings["fusion_launch"] = t1 - t0
-        timings["fusion_readback"] = t2 - t1
+    seconds = {} if verbose else None
+    with trace.timed(seconds, "select", "fusion.select"):
+        flat_xyz, flat_probs = resident
+        if flat_xyz.shape[0] != plan.layout.flat_len:
+            raise ValueError("resident arrays do not match the plan layout")
+        pay = quantize_payload(flat_probs)
+        queries, q_len, regions = entry_tensors(plan, query_xyz, dev)
+        n_e = plan.q_len.size
+        # this process's entries [lo, hi): all of them for one process
+        w = group.world_size if group is not None else 1
+        share = -(-n_e // w)
+        lo = 0 if group is None else min(n_e, group.rank * share)
+        hi = min(n_e, lo + share)
+        codes = torch.zeros(share * PAIR_QCHUNK, dtype=torch.int16,
+                            device=dev)
+        for e0 in range(lo, hi, ENTRIES_PER_LAUNCH):
+            e1 = min(hi, e0 + ENTRIES_PER_LAUNCH)
+            d2, sel = pair_select(queries[e0:e1], q_len[e0:e1], flat_xyz,
+                                  pay, regions[e0:e1], k_out)
+            codes[(e0 - lo) * PAIR_QCHUNK:(e1 - lo) * PAIR_QCHUNK] = (
+                pair_vote(d2, sel, q_len[e0:e1], is_wood, any_wood))
+        if w > 1:
+            # the shares are disjoint and in entry order (int32: gloo does
+            # not gather int16)
+            codes = fetch(group, codes.to(torch.int32)).to(torch.int16)
+        # one zero slot past the last for the rows no entry covers
+        codes = torch.cat([codes[:plan.n_slots], codes.new_zeros(1)])
+    with trace.timed(seconds, "readback", "fusion.readback"):
+        inv = torch.from_numpy(plan.query_slots()).to(dev)
+        pv = codes[inv].cpu().numpy().astype(np.int64)
     if verbose:
         print(f"fusion: {n_e} entries, {plan.n_slots} slots -> {plan.n_q} "
-              f"rows (launch {t1 - t0:.3f}s, compute+readback "
-              f"{t2 - t1:.3f}s)")
+              f"rows (select {seconds['select']:.3f}s enqueued, "
+              f"compute+readback {seconds['readback']:.3f}s)")
     out = np.empty((plan.n_q, 2), np.float64)
     out[:, 0] = pv >> 11
     out[:, 1] = (pv & 0x7FF) * (1.0 / PWOOD_STEPS)
@@ -574,56 +572,62 @@ def tile_knn_indices(
                 np.zeros(n_q, bool))
     scales = sorted({t.grid_size for t in tiles})
     n_scales = len(scales)
-    flat, offsets, lens = flat_tiles(tiles, order, dev)
-    xyz32 = query_xyz.astype(np.float32)
-    qdev = torch.from_numpy(xyz32).to(dev)
-
-    k_total = K_PER_SCALE * n_scales
-    idx_out = torch.zeros((n_q, k_total), dtype=torch.int64, device=dev)
-    d2_out = (torch.full((n_q, k_total), torch.inf, device=dev)
-              if need_d2 else None)
-    valid_scale = torch.zeros((n_q, n_scales), dtype=torch.bool, device=dev)
-    all_ids = cell_ids_multi(xyz32, scales)
+    with trace.span("fusion.index.knn"):
+        flat, offsets, lens = flat_tiles(tiles, order, dev)
+        xyz32 = query_xyz.astype(np.float32)
+        qdev = torch.from_numpy(xyz32).to(dev)
+        k_total = K_PER_SCALE * n_scales
+        idx_out = torch.zeros((n_q, k_total), dtype=torch.int64, device=dev)
+        d2_out = (torch.full((n_q, k_total), torch.inf, device=dev)
+                  if need_d2 else None)
+        valid_scale = torch.zeros((n_q, n_scales), dtype=torch.bool,
+                                  device=dev)
+    with trace.span("fusion.index.cells"):
+        all_ids = cell_ids_multi(xyz32, scales)
     for si, scale in enumerate(scales):
-        tile_of, _ = _tiles_of_cells(tiles, scale, all_ids[:, si])
-        work: dict = {}  # cap -> [(tile, query rows)]
-        qorder = np.argsort(tile_of, kind="stable")
-        qorder = qorder[tile_of[qorder] >= 0]
-        bounds = np.flatnonzero(np.diff(tile_of[qorder])) + 1
-        for grp in np.split(qorder, bounds):
-            if grp.size == 0:
-                continue
-            t = int(tile_of[grp[0]])
-            pairs = work.setdefault(_next_cap(int(lens[t])), [])
-            pairs += [(t, grp[s0:s0 + QCHUNK])
-                      for s0 in range(0, grp.size, QCHUNK)]
+        with trace.span("fusion.index.cells", scale=scale):
+            tile_of, _ = _tiles_of_cells(tiles, scale, all_ids[:, si])
+            work: dict = {}  # cap -> [(tile, query rows)]
+            qorder = np.argsort(tile_of, kind="stable")
+            qorder = qorder[tile_of[qorder] >= 0]
+            bounds = np.flatnonzero(np.diff(tile_of[qorder])) + 1
+            for grp in np.split(qorder, bounds):
+                if grp.size == 0:
+                    continue
+                t = int(tile_of[grp[0]])
+                pairs = work.setdefault(_next_cap(int(lens[t])), [])
+                pairs += [(t, grp[s0:s0 + QCHUNK])
+                          for s0 in range(0, grp.size, QCHUNK)]
         col = slice(si * K_PER_SCALE, (si + 1) * K_PER_SCALE)
-        for cap, pairs in sorted(work.items()):
-            for launch in _launches(pairs, cap):
-                rows, idx, d2, row_valid = _knn_launch(
-                    flat, qdev, launch, offsets, lens, cap)
-                idx_out[rows, col] = torch.where(row_valid[:, None], idx, 0)
-                if need_d2:
-                    d2_out[rows, col] = torch.where(row_valid[:, None], d2,
-                                                    torch.inf)
-                valid_scale[rows, si] = row_valid
+        with trace.span("fusion.index.knn", scale=scale):
+            for cap, pairs in sorted(work.items()):
+                for launch in _launches(pairs, cap):
+                    rows, idx, d2, row_valid = _knn_launch(
+                        flat, qdev, launch, offsets, lens, cap)
+                    idx_out[rows, col] = torch.where(row_valid[:, None],
+                                                     idx, 0)
+                    if need_d2:
+                        d2_out[rows, col] = torch.where(
+                            row_valid[:, None], d2, torch.inf)
+                    valid_scale[rows, si] = row_valid
 
     # the scale-fill rule: a row that some scale covers takes that
     # scale's block wherever another scale missed it, with +inf distances
     # there, so the k = 64 median/vote sees duplicates (invariant) and the
     # k = 32 merge selects the covered scale's 32 distinct neighbours
-    covered = valid_scale.any(1)
-    blocks = idx_out.view(n_q, n_scales, K_PER_SCALE)
-    first = valid_scale.to(torch.int32).argmax(1)
-    fill = blocks[torch.arange(n_q, device=dev), first]
-    for si in range(n_scales):
-        need = covered & ~valid_scale[:, si]
-        blocks[need, si] = fill[need]
-        if need_d2:
-            d2_out.view(n_q, n_scales, K_PER_SCALE)[need, si] = torch.inf
-    return (idx_out.cpu().numpy(),
-            d2_out.cpu().numpy() if need_d2 else None,
-            covered.cpu().numpy())
+    with trace.span("fusion.index.knn"):
+        covered = valid_scale.any(1)
+        blocks = idx_out.view(n_q, n_scales, K_PER_SCALE)
+        first = valid_scale.to(torch.int32).argmax(1)
+        fill = blocks[torch.arange(n_q, device=dev), first]
+        for si in range(n_scales):
+            need = covered & ~valid_scale[:, si]
+            blocks[need, si] = fill[need]
+            if need_d2:
+                d2_out.view(n_q, n_scales, K_PER_SCALE)[need, si] = torch.inf
+        return (idx_out.cpu().numpy(),
+                d2_out.cpu().numpy() if need_d2 else None,
+                covered.cpu().numpy())
 
 
 def fusion_indices(
@@ -649,16 +653,25 @@ def fusion_indices(
     n_q = query_xyz.shape[0]
     n_scales = len({t.grid_size for t in tiles})
     if n_scales * K_PER_SCALE < k or cluster_features:
-        return knn_indices(classified_xyz, query_xyz, k), n_q
+        return _host_search(classified_xyz, query_xyz, k), n_q
     need_d2 = n_scales * K_PER_SCALE > k
     idx, d2, covered = tile_knn_indices(tiles, order, query_xyz, min_pts,
                                         need_d2=need_d2, device=device)
     if idx.shape[1] < k:
-        return knn_indices(classified_xyz, query_xyz, k), n_q
-    if need_d2:
-        part = np.argpartition(d2, k - 1, axis=1)[:, :k]
-        idx = np.take_along_axis(idx, part, axis=1)
-    rows = np.flatnonzero(~covered)
+        return _host_search(classified_xyz, query_xyz, k), n_q
+    with trace.span("fusion.index.merge"):
+        if need_d2:
+            part = np.argpartition(d2, k - 1, axis=1)[:, :k]
+            idx = np.take_along_axis(idx, part, axis=1)
+        rows = np.flatnonzero(~covered)
     if rows.size:
-        idx[rows] = knn_indices(classified_xyz, query_xyz[rows], k)
+        idx[rows] = _host_search(classified_xyz, query_xyz[rows], k)
     return idx, int(rows.size)
+
+
+def _host_search(classified_xyz, query_xyz, k):
+    """``fusion.knn_indices``, traced as ``fusion.host_search`` with its
+    rows counted in ``fusion.host_rows``."""
+    with trace.span("fusion.host_search"):
+        trace.count("fusion.host_rows", len(query_xyz))
+        return knn_indices(classified_xyz, query_xyz, k)

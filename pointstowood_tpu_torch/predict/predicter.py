@@ -23,7 +23,6 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import os
-import time
 from typing import Sequence
 
 import numpy as np
@@ -51,6 +50,7 @@ from pointstowood_tpu_torch.predict.fusion import (
     Fusion,
     knn_indices,
 )
+from pointstowood_tpu_torch.utils import trace
 from pointstowood_tpu_torch.utils.device import resolve_device
 
 
@@ -95,6 +95,7 @@ def tile_batcher(tiles, predict_cfg, tiling_cfg,
     )
 
 
+@trace.entry_point
 def run_inference(
     tiles: Sequence[Tile],
     net: Net,
@@ -126,13 +127,14 @@ def run_inference(
         raise ValueError("run_inference: a FlatSink takes one process's "
                          "batches; under a data group fuse from the "
                          "gathered rows (device_fusion.layout_tight)")
-    batcher = tile_batcher(tiles, predict_cfg, tiling_cfg, group)
+    batcher = iter(tile_batcher(tiles, predict_cfg, tiling_cfg, group))
     outputs = []
     pending = []  # (device probs, host batch)
 
     def drain(entry):
         probs_dev, batch = entry
-        probs = probs_dev.float().cpu().numpy()
+        with trace.span("model.drain"):
+            probs = probs_dev.float().cpu().numpy()
         preds = (probs >= predict_cfg.is_wood).astype(np.float64)
         xyz = (batch.pos.astype(np.float64)
                + batch.shift[:, None, :].astype(np.float64))
@@ -142,15 +144,23 @@ def run_inference(
         outputs.append(out[batch.mask])
 
     n_batches = 0
-    for _, batch, _ in batcher:
+    while True:
+        with trace.span("model.batch"):
+            item = next(batcher, None)
+        if item is None:
+            break
+        batch = item[1]
         n_batches += 1
-        pos, refl, mask, sf = (
-            torch.from_numpy(a).to(dev, non_blocking=True)
-            for a in shard_rows(group, batch.pos, batch.reflectance,
-                                batch.mask, batch.sf))
-        probs_dev = fetch(group, forward_probs(net, pos, refl, mask, sf))
+        with trace.span("model.upload"):
+            pos, refl, mask, sf = (
+                torch.from_numpy(a).to(dev, non_blocking=True)
+                for a in shard_rows(group, batch.pos, batch.reflectance,
+                                    batch.mask, batch.sf))
+        with trace.span("model.forward"):
+            probs_dev = fetch(group, forward_probs(net, pos, refl, mask, sf))
         if sink is not None:
-            sink.write(pos, batch.shift, probs_dev)
+            with trace.span("model.sink"):
+                sink.write(pos, batch.shift, probs_dev)
         if with_readback:
             pending.append((probs_dev, batch))
             if len(pending) > 2:
@@ -169,6 +179,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@trace.entry_point
 def semantic_segmentation(
     pc: dict,
     tiles: Sequence[Tile],
@@ -205,10 +216,11 @@ def semantic_segmentation(
     the device after it.
 
     ``profile_dir``: write a torch.profiler trace of the model phase
-    there. ``timings`` (optional dict) receives per-phase seconds:
-    ``model``, ``fusion_plan`` (worker thread, overlapped with the model;
-    pair and host paths), ``fusion_wait``, ``fusion_index`` (index path)
-    and ``fusion``.
+    there (``model_phase.json``). ``timings`` (optional dict) receives
+    per-phase seconds, each the tracer's span of that name
+    (``utils/trace.py``): ``model``, ``fusion_plan`` (worker thread,
+    overlapped with the model; pair and host paths), ``fusion_wait``,
+    ``fusion_index`` (index path) and ``fusion``.
 
     ``group`` (a ``parallel.DataGroup``): every process classifies its
     rows of every batch and gathers the rest (``run_inference``). The
@@ -254,18 +266,18 @@ def semantic_segmentation(
     def source_xyz():
         return np.concatenate([tiles[ti].points[:, :3] for ti in order])
 
-    def prepare():
-        t = time.perf_counter()
+    def prepare(parent):
         if path == "pair":
-            out = device_fusion.plan_fusion(
-                tiles, query_xyz, tiling_cfg.min_pts, layout,
-                cluster_features=cluster_features)
-        elif path == "host":
-            out = knn_indices(source_xyz(), query_xyz, k)
-        else:
-            return None
-        timings["fusion_plan"] = time.perf_counter() - t
-        return out
+            with trace.timed(timings, "fusion_plan", parent=parent):
+                return device_fusion.plan_fusion(
+                    tiles, query_xyz, tiling_cfg.min_pts, layout,
+                    cluster_features=cluster_features)
+        if path == "host":
+            with trace.timed(timings, "fusion_plan", parent=parent), \
+                    trace.span("fusion.host_search"):
+                trace.count("fusion.host_rows", len(query_xyz))
+                return knn_indices(source_xyz(), query_xyz, k)
+        return None
 
     ctx = contextlib.nullcontext()
     if profile_dir:
@@ -276,60 +288,63 @@ def semantic_segmentation(
             activities.append(ProfilerActivity.CUDA)
         ctx = profile(activities=activities)
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
-        prepared = ex.submit(prepare)
-        t0 = time.perf_counter()
-        with ctx as prof:
-            classified = run_inference(
-                tiles, net, predict_cfg, tiling_cfg, device=dev, sink=sink,
-                with_readback=sink is None, group=group)
-            _sync(dev)
-        t1 = time.perf_counter()
+        prepared = ex.submit(prepare, trace.current())
+        with trace.timed(timings, "model"):
+            with ctx as prof:
+                if profile_dir:  # the spans' place on this profile's clock
+                    trace.anchor()
+                classified = run_inference(
+                    tiles, net, predict_cfg, tiling_cfg, device=dev,
+                    sink=sink, with_readback=sink is None, group=group)
+                _sync(dev)
         if profile_dir:
+            trace.resolve(prof.profiler.kineto_results.events())
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(
                 os.path.join(profile_dir, "model_phase.json"))
-        timings["model"] = t1 - t0
         if verbose:
             n_pts = int(sum(len(t) for t in tiles))
-            print(f"model phase: {t1 - t0:.2f}s, {len(tiles)} tiles, "
+            dt = timings["model"]
+            print(f"model phase: {dt:.2f}s, {len(tiles)} tiles, "
                   f"{n_pts} classified points "
-                  f"({n_pts / max(t1 - t0, 1e-9):,.0f} pts/s)")
-        prep = prepared.result()
-    t2 = time.perf_counter()
-    timings["fusion_wait"] = t2 - t1
-    fusion = Fusion(predict_cfg.is_wood, predict_cfg.any_wood, device=dev)
-    n_host = 0
-    if path == "pair":
-        resident = (sink.arrays() if sink is not None else
-                    device_fusion.resident_tight(tiles, order, layout,
-                                                 classified[:, 4], dev))
-        fused = device_fusion.fuse_on_device(
-            prep, resident, query_xyz, predict_cfg.is_wood,
-            predict_cfg.any_wood, verbose=verbose, device=dev,
-            timings=timings, group=group)
-        out = fusion.collect_predictions(None, pc, fused=fused)
-        how = "device pair path (pair_select kernel + torch median/vote"
-        how += (")" if not spans_processes(group) else
-                f"; entries split over {group.world_size} processes)")
-    elif path == "index":
-        indices, n_host = device_fusion.fusion_indices(
-            tiles, order, source_xyz(), query_xyz, k, tiling_cfg.min_pts,
-            cluster_features=cluster_features, device=dev)
-        timings["fusion_index"] = time.perf_counter() - t2
-        out = fusion.collect_predictions(classified, pc, indices=indices)
-        how = (f"index path (tile-local device kNN, k={k} + torch "
-               f"median/vote; pair path declined: {reason})")
-    elif path == "cache":
-        out = fusion.collect_predictions(classified, pc)
-        how = (f"host path (indices of {NBRS_CACHE}, no search + torch "
-               "median/vote)")
-    else:
-        out = fusion.collect_predictions(classified, pc, indices=prep)
-        n_host = len(query_xyz)
-        how = ("host path (scipy cKDTree + torch median/vote"
-               + (f"; pair path declined: {reason})" if reason else ")"))
-    _sync(dev)
-    timings["fusion"] = time.perf_counter() - t2
+                  f"({n_pts / max(dt, 1e-9):,.0f} pts/s)")
+        with trace.timed(timings, "fusion_wait"):
+            prep = prepared.result()
+    with trace.timed(timings, "fusion"):
+        fusion = Fusion(predict_cfg.is_wood, predict_cfg.any_wood,
+                        device=dev)
+        n_host = 0
+        if path == "pair":
+            resident = (sink.arrays() if sink is not None else
+                        device_fusion.resident_tight(tiles, order, layout,
+                                                     classified[:, 4], dev))
+            fused = device_fusion.fuse_on_device(
+                prep, resident, query_xyz, predict_cfg.is_wood,
+                predict_cfg.any_wood, verbose=verbose, device=dev,
+                group=group)
+            out = fusion.collect_predictions(None, pc, fused=fused)
+            how = "device pair path (pair_select kernel + torch median/vote"
+            how += (")" if not spans_processes(group) else
+                    f"; entries split over {group.world_size} processes)")
+        elif path == "index":
+            with trace.timed(timings, "fusion_index"):
+                indices, n_host = device_fusion.fusion_indices(
+                    tiles, order, source_xyz(), query_xyz, k,
+                    tiling_cfg.min_pts, cluster_features=cluster_features,
+                    device=dev)
+            out = fusion.collect_predictions(classified, pc, indices=indices)
+            how = (f"index path (tile-local device kNN, k={k} + torch "
+                   f"median/vote; pair path declined: {reason})")
+        elif path == "cache":
+            out = fusion.collect_predictions(classified, pc)
+            how = (f"host path (indices of {NBRS_CACHE}, no search + torch "
+                   "median/vote)")
+        else:
+            out = fusion.collect_predictions(classified, pc, indices=prep)
+            n_host = len(query_xyz)
+            how = ("host path (scipy cKDTree + torch median/vote"
+                   + (f"; pair path declined: {reason})" if reason else ")"))
+        _sync(dev)
     print(f"fusion: {how}, {len(query_xyz)} points, {n_host} searched on "
           f"the host, in {timings['fusion']:.2f}s")
     return out

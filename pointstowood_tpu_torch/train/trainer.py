@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 import os
 from typing import Callable, Optional, Sequence
@@ -67,6 +68,7 @@ from pointstowood_tpu_torch.train.schedule import (
     cosine_warmup_restarts_lr,
     onecycle_cos_lr,
 )
+from pointstowood_tpu_torch.utils import trace
 from pointstowood_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -160,55 +162,79 @@ def make_train_step(net: Net, optimizer: torch.optim.Optimizer,
     group (``set_data_group``); the gradients, loss and counts are summed
     over the group in one collective, so the finite guard and the clip
     read the global gradients and every process applies the same
-    update."""
+    update.
+
+    Traced (``utils/trace.py``) as ``step`` (its request: the step's
+    number) over ``step.forward``, ``step.backward`` (loss, backward,
+    counts, the collective), ``step.guard`` (the host's read of the
+    finite flag, which waits for the device) and ``step.update`` (clip
+    and AdamW, or the statistics' restore), each with device marks; the
+    step then reads the flag again, which waits for the update."""
     params = list(net.parameters())
     buffers = [b for _, b in net.named_buffers()]
+    steps = itertools.count()
 
+    @trace.entry_point
     def train_step(pos, refl, mask, sf, labels, lr: float,
                    generator: torch.Generator):
-        saved = [b.clone() for b in buffers]
-        optimizer.zero_grad(set_to_none=False)
-        logits = net(pos, refl, mask, sf, training=True, generator=generator)
-        loss, _ = poly1_focal_loss(
-            logits, labels, epsilon=loss_cfg.poly_epsilon,
-            gamma=loss_cfg.focal_gamma, alpha=None,
-            label_smoothing=loss_cfg.label_smoothing, mask=mask,
-            reduction="mean", group=group)
-        loss.backward()
-        for p in params:
-            # parameters off the graph (the ReflectanceGate) get a zero
-            # gradient, so AdamW still decays them as optax does
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        with torch.no_grad():
-            preds = (torch.sigmoid(logits) >= 0.5).float()
-            counts = binary_counts(preds, labels, mask)
-        loss = loss.detach()
-        if spans_processes(group):
-            # one bucket: every gradient, the loss and the counts, summed
-            # in float64 (exact for two float32 shares, and rounded once
-            # for more, so a gradient that the shares' signs cancel keeps
-            # the one process's precision)
-            flat = all_reduce_sum_(group, torch.cat(
-                [g.reshape(-1) for g in grads] + [loss.reshape(1), counts])
-                .double())
-            for g, part in zip(grads, flat.split([g.numel() for g in grads]
-                                                 + [1, 4])):
-                g.copy_(part.view_as(g))
-            loss, counts = flat[-5].float(), flat[-4:].float()
-        finite = torch.stack([torch.isfinite(loss)]
-                             + [torch.isfinite(g).all() for g in grads]).all()
-        if bool(finite):
-            clip_by_global_norm_(grads, loss_cfg.grad_clip_norm)
-            for param_group in optimizer.param_groups:
-                param_group["lr"] = lr
-            optimizer.step()
-        else:
-            with torch.no_grad():
-                for b, s in zip(buffers, saved):
-                    b.copy_(s)
-        return loss, counts, bool(finite)
+        dev = pos.device
+        with trace.span("step", request=next(steps)):
+            with trace.span("step.forward", marks=dev):
+                saved = [b.clone() for b in buffers]
+                optimizer.zero_grad(set_to_none=False)
+                logits = net(pos, refl, mask, sf, training=True,
+                             generator=generator)
+            with trace.span("step.backward", marks=dev):
+                loss, _ = poly1_focal_loss(
+                    logits, labels, epsilon=loss_cfg.poly_epsilon,
+                    gamma=loss_cfg.focal_gamma, alpha=None,
+                    label_smoothing=loss_cfg.label_smoothing, mask=mask,
+                    reduction="mean", group=group)
+                loss.backward()
+                for p in params:
+                    # parameters off the graph (the ReflectanceGate) get a
+                    # zero gradient, so AdamW still decays them as optax
+                    # does
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grads = [p.grad for p in params]
+                with torch.no_grad():
+                    preds = (torch.sigmoid(logits) >= 0.5).float()
+                    counts = binary_counts(preds, labels, mask)
+                loss = loss.detach()
+                if spans_processes(group):
+                    # one bucket: every gradient, the loss and the counts,
+                    # summed in float64 (exact for two float32 shares, and
+                    # rounded once for more, so a gradient that the
+                    # shares' signs cancel keeps the one process's
+                    # precision)
+                    flat = all_reduce_sum_(group, torch.cat(
+                        [g.reshape(-1) for g in grads]
+                        + [loss.reshape(1), counts]).double())
+                    for g, part in zip(grads, flat.split(
+                            [g.numel() for g in grads] + [1, 4])):
+                        g.copy_(part.view_as(g))
+                    loss, counts = flat[-5].float(), flat[-4:].float()
+            # the host waits here for the device to finish the backward
+            with trace.span("step.guard", marks=dev):
+                finite = torch.stack(
+                    [torch.isfinite(loss)]
+                    + [torch.isfinite(g).all() for g in grads]).all()
+                ok = bool(finite)
+            with trace.span("step.update", marks=dev):
+                if ok:
+                    clip_by_global_norm_(grads, loss_cfg.grad_clip_norm)
+                    for param_group in optimizer.param_groups:
+                        param_group["lr"] = lr
+                    optimizer.step()
+                else:
+                    with torch.no_grad():
+                        for b, s in zip(buffers, saved):
+                            b.copy_(s)
+            # the second read waits for the update, so the step ends with
+            # the device drained
+            finite = bool(finite)
+        return loss, counts, finite
 
     return train_step
 
@@ -234,14 +260,16 @@ def make_stats_step(net: Net):
     return stats_step
 
 
+@trace.entry_point
 def _batch_arrays(batch, device: torch.device,
                   group: DataGroup | None = None):
     """The batch's arrays as tensors on ``device``: this process's rows of
-    them under ``group``."""
-    arrays = shard_rows(group, batch.pos, batch.reflectance, batch.mask,
-                        batch.sf, batch.labels)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
-        device, non_blocking=True) for a in arrays)
+    them under ``group`` (traced as ``batch.upload``)."""
+    with trace.span("batch.upload"):
+        arrays = shard_rows(group, batch.pos, batch.reflectance, batch.mask,
+                            batch.sf, batch.labels)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            device, non_blocking=True) for a in arrays)
 
 
 def recalibrate_batch_stats(net: Net, tiles, cfg: TrainConfig,
@@ -279,6 +307,7 @@ def make_eval_step(net: Net, group: DataGroup | None = None):
     return eval_step
 
 
+@trace.entry_point
 def semantic_training(
     train_tiles: Sequence[Tile],
     cfg: TrainConfig,

@@ -1,0 +1,9 @@
+"""Device milliseconds of a traced step's loss, backward and counts:
+between the CUDA events of the program's ``step.backward`` span, mean
+over the steps."""
+
+from portbench.layers import _program
+
+
+def read(view):
+    return _program.device_ms(view, "step.backward")
