@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import optax
 
 from chip_smoke import seeded_flax_variables
+from flax_forward import flax_probs
 from pointstowood_tpu import config as j_config
 from pointstowood_tpu.model import Net as JNet
 from pointstowood_tpu.model import attention as j_att
@@ -372,12 +373,6 @@ def _sparse_cloud(seed, n=256):
     return xyz[None], refl[None], np.ones((1, n), bool), np.array([sf])
 
 
-@functools.partial(jax.jit, static_argnums=0)
-def _jax_probs(net, variables, pos, refl, mask, sf):
-    return jax.nn.sigmoid(net.apply(variables, pos, refl, mask, sf,
-                                    training=False))
-
-
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_attention_net_matches_flax(variant):
     flags = VARIANTS[variant]
@@ -385,7 +380,7 @@ def test_attention_net_matches_flax(variant):
     variables = seeded_flax_variables(tnet, 13)
     tnet.load_state_dict(state_dict_from_flax(variables), strict=True)
     inputs = _sparse_cloud(13)
-    ref = np.asarray(_jax_probs(JNet(**_EXACT, **flags, dtype=jnp.float32),
+    ref = np.asarray(flax_probs(JNet(**_EXACT, **flags, dtype=jnp.float32),
                                 variables, *inputs))
     got = t_predicter.forward_probs(tnet.eval(), *_t(*inputs)).numpy()
     assert np.isfinite(got).all() and ref.std() > 1e-3

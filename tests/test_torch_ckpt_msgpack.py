@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import msgpack as msgpack_py
 
+from flax_forward import flax_probs
 from pointstowood_tpu.model import Net as JNet
 from pointstowood_tpu.utils import checkpoint as j_checkpoint
 from pointstowood_tpu.utils.checkpoint_convert import convert_torch_state_dict
@@ -56,12 +57,6 @@ def _cloud(seed=3, n=512):
     refl = rng.normal(size=n).astype(np.float32)
     sf = np.float32(np.linalg.norm(xyz, axis=1).max())
     return xyz[None], refl[None], np.ones((1, n), bool), np.array([sf])
-
-
-@functools.partial(jax.jit, static_argnums=0)
-def _jax_probs(net, variables, pos, refl, mask, sf):
-    return jax.nn.sigmoid(net.apply(variables, pos, refl, mask, sf,
-                                    training=False))
 
 
 def _leaves(tree, prefix=""):
@@ -248,7 +243,7 @@ def test_jax_ckpt_serves_in_the_port(jax_variables, jax_ckpt):
     tnet = t_checkpoint.load_checkpoint(jax_ckpt, TNet(**KW)).eval()
     got = forward_probs(tnet, *[torch.from_numpy(np.array(a))
                                 for a in inputs]).numpy()
-    want = np.asarray(_jax_probs(JNet(**KW, dtype=jnp.float32),
+    want = np.asarray(flax_probs(JNet(**KW, dtype=jnp.float32),
                                  jax_variables, *inputs))
     assert np.abs(got - want).max() < 1e-4
 
@@ -266,7 +261,7 @@ def test_port_ckpt_serves_in_jax(jax_variables, tmp_path):
     inputs = _cloud(seed=17)
     want = forward_probs(tnet.eval(), *[torch.from_numpy(np.array(a))
                                         for a in inputs]).numpy()
-    got = np.asarray(_jax_probs(JNet(**KW, dtype=jnp.float32), restored,
+    got = np.asarray(flax_probs(JNet(**KW, dtype=jnp.float32), restored,
                                 *inputs))
     assert np.abs(got - want).max() < 1e-4
     pth = str(tmp_path / "port.pth")

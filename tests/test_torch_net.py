@@ -15,7 +15,6 @@ the port receives it through ``state_dict_from_flax``.
   order, with the fast config's bars.
 """
 
-import functools
 
 import numpy as np
 import pytest
@@ -25,6 +24,7 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
+from flax_forward import flax_probs
 from pointstowood_tpu import config as j_config
 from pointstowood_tpu.data.tiling import Tile as JTile
 from pointstowood_tpu.model import Net as JNet
@@ -89,12 +89,6 @@ def _port(tnet, variables):
     return tnet.eval()
 
 
-@functools.partial(jax.jit, static_argnums=0)
-def _jax_probs(net, variables, pos, refl, mask, sf):
-    return jax.nn.sigmoid(net.apply(variables, pos, refl, mask, sf,
-                                    training=False))
-
-
 def _t(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
 
@@ -121,7 +115,7 @@ def test_exact_net_matches_flax(seed):
     variables = _flax_variables(tnet, seed)
     _port(tnet, variables)
     inputs = _sparse_cloud(seed)
-    ref = np.asarray(_jax_probs(JNet(**kw, dtype=jnp.float32), variables,
+    ref = np.asarray(flax_probs(JNet(**kw, dtype=jnp.float32), variables,
                                 *inputs))
     got = t_predicter.forward_probs(tnet, *_t(*inputs)).numpy()
     assert np.abs(got - ref).max() < 1e-4
