@@ -33,10 +33,10 @@ import time
 import numpy as np
 import torch
 
-from portbench import plots, probe, weights
+from portbench import arch, plots, probe, weights
 from portbench.kinds import tile_mismatch
 from portbench.reference import fusion as ref_fusion
-from portbench.reference.net import Products, RefNet
+from portbench.reference.net import Products
 from portbench.reference.tiling import inference_capacities, pad, tile_cloud
 
 
@@ -56,6 +56,7 @@ class Cell:
     def __init__(self, cell, seed: int, device, fault: str | None = None):
         self.cell = cell
         self.model = cell.config["model"]
+        self.arch = arch.load(self.model)
         self.traffic = cell.traffic
         self.seed = seed
         self.device = torch.device(device)
@@ -109,10 +110,8 @@ class Cell:
         self._call([warm_path])
 
     def argv(self, paths):
-        return (["--point-cloud", *paths, "--model", self.model_path,
-                 "--channels", str(self.model["channels"]),
-                 "--dtype", self.model["compute_dtype"]]
-                + list(self.traffic["argv"]))
+        return (["--point-cloud", *paths, "--model", self.model_path]
+                + self.arch.cli_args(self.model) + list(self.traffic["argv"]))
 
     def _call(self, paths):
         from pointstowood_tpu_torch.cli import predict
@@ -246,7 +245,8 @@ class Cell:
                 d = {k: torch.from_numpy(v).to(self.device)
                      for k, v in b.items()}
                 with torch.no_grad():
-                    logits = RefNet(self.weights, self.model, products).forward(
+                    logits = self.arch.Reference(
+                        self.weights, self.model, products).forward(
                         d["pos"], d["refl"], d["mask"], d["sf"])
                     p = torch.sigmoid(logits).cpu().numpy()
                 for j, t in enumerate(part):

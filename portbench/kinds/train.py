@@ -4,7 +4,8 @@ Set-up makes one labelled plot (the traffic's fixed layout, the seed's
 reflectances and row order; trunk points are wood),
 tiles it with the program's preprocessing at the traffic's tiling, makes
 the configuration's weights on the device, and builds one training
-object: the program's ``Net`` with those weights, its AdamW
+object: the program's network of the configuration's architecture
+(``arch/<name>.py``, its ``build``) with those weights, its AdamW
 (``make_optimizer``) and its step (``make_train_step``). It drives that
 object through its first steps, as the window does, and hands it to the
 window. The window continues the trainer's loop: ``TileBatcher``
@@ -33,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import plots, probe, weights
+from portbench import arch, plots, probe, weights
 from portbench.kinds import tile_mismatch
 from portbench.reference import tiling as ref_tiling
 from portbench.reference.net import Products
@@ -47,6 +48,7 @@ class Cell:
     def __init__(self, cell, seed: int, device, fault: str | None = None):
         self.cell = cell
         self.model = cell.config["model"]
+        self.arch = arch.load(self.model)
         self.traffic = cell.traffic
         self.seed = seed
         self.device = torch.device(device)
@@ -60,7 +62,6 @@ class Cell:
         from pointstowood_tpu_torch.config import TilingConfig, TrainConfig
         from pointstowood_tpu_torch.data.tiling import preprocess_cloud
         from pointstowood_tpu_torch.io.loader import canonicalize_columns
-        from pointstowood_tpu_torch.model import Net
         from pointstowood_tpu_torch.train.trainer import (
             make_optimizer,
             make_train_step,
@@ -78,13 +79,7 @@ class Cell:
         self.tiles = preprocess_cloud(pc, self.tiling, with_labels=True)
         m = self.model
         self.w0 = weights.make_weights(m, self.seed, self.device)
-        net = Net(num_classes=m["num_classes"], channels=m["channels"],
-                  k=m["k"], sa_resolutions=tuple(m["sa_resolutions"]),
-                  stage_fractions=tuple(m["stage_fractions"]),
-                  fp_k=m["fp_k"], knn_method=m["knn_mode"],
-                  voxel_priority=m["voxel_priority"],
-                  attention_knn=m.get("attention_knn", False),
-                  dtype=getattr(torch, m["compute_dtype"]))
+        net = self.arch.build(m)
         net.load_state_dict(self.w0)
         self.net = net.to(self.device)
         self.cfg = TrainConfig(batch_size=tr["batch_size"],

@@ -1,6 +1,7 @@
-"""The network's FLOPs in the traced window (``roofline.net_flops``,
-valid points only, the backward twice the forward) over the window's
-wall time, as a share of the chip's dense bfloat16 peak."""
+"""The network's FLOPs in the traced window (its architecture's
+``forward_work``; for the ``Net`` ``roofline.net_flops``: valid points
+only, the backward twice the forward) over the window's wall time, as a
+share of the chip's dense bfloat16 peak."""
 
 from portbench import roofline
 

@@ -1,13 +1,16 @@
 """``BENCHMARK.json`` and the files the harness finds by name in it:
-``configs/<config>.json``, ``traffic/<traffic>.json``,
-``limits/<cell>.json``, ``layers/<metric>.py`` (or, for a metric split by
-what it moves, ``<family>.<part>``, the family's ``layers/<family>.py``)."""
+``configs/<config>.json`` and its architecture's ``arch/<arch>.py``
+(``arch.load``), ``traffic/<traffic>.json``, ``limits/<cell>.json``,
+``layers/<metric>.py`` (or, for a metric split by what it moves,
+``<family>.<part>``, the family's ``layers/<family>.py``)."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
 from pathlib import Path
+
+from portbench import arch
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -30,6 +33,8 @@ class Cell:
         self.chips = entry["chips"]
         conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
         self.config = _json(ROOT / conf["file"])
+        arch.load(self.config["model"])  # an unknown one fails before a run
+        self.traffic_name = entry["traffic"]
         self.traffic = _json(HERE / "traffic" / f"{entry['traffic']}.json")
         self.limits = _json(HERE / "limits" / f"{name}.json")
         self.end_to_end = [m for m in bench["end_to_end"]

@@ -8,7 +8,7 @@ from __future__ import annotations
 import contextlib
 import functools
 
-from portbench import roofline
+from portbench import arch, roofline
 
 
 class Patches(contextlib.ExitStack):
@@ -60,14 +60,16 @@ def claim_operations(p: Patches, tracer) -> None:
 
 
 class Work:
-    """The valid counts of every forward of a traced window (through
-    hooks on the network's SA stages) and the fusion's selections; turned
-    into operations and FLOPs after the window."""
+    """What the network's forwards in a traced window ran (one record a
+    forward, by its architecture's hooks, ``arch/<name>.py``) and the
+    fusion's selections; turned into operations and FLOPs after the
+    window."""
 
     def __init__(self, tracer, model: dict):
         self.tracer = tracer
         self.model = model
-        self.stages = ([], [], [])  # per stage: (mask sums, centre sums, grad)
+        self.arch = arch.load(model)
+        self.forwards = []  # (the architecture's counts, grad enabled)
         self.fusion = []  # pending (kind, tensors...)
         self._hooked = set()
 
@@ -75,15 +77,7 @@ class Work:
         if id(net) in self._hooked:
             return
         self._hooked.add(id(net))
-        import torch
-
-        for i in range(3):
-            def record(_mod, args, out, i=i):
-                if self.tracer.active:
-                    self.stages[i].append((args[3].sum(1), out[3].sum(1),
-                                           torch.is_grad_enabled()))
-
-            getattr(net, f"sa{i + 1}_module").register_forward_hook(record)
+        self.arch.hook(self, net)
 
     def pair_select(self, fn):
         @functools.wraps(fn)
@@ -107,11 +101,10 @@ class Work:
 
     def ops_and_flops(self) -> tuple[list, float]:
         ops, flops = [], 0.0
-        for (m1, c1, grad), (_, c2, _), (_, c3, _) in zip(*self.stages):
-            counts = {"n": m1.tolist(), "s1": c1.tolist(),
-                      "s2": c2.tolist(), "s3": c3.tolist()}
-            ops += roofline.forward_ops(counts, self.model, grad)
-            flops += roofline.net_flops(counts, self.model, grad)
+        for counts, grad in self.forwards:
+            o, f = self.arch.forward_work(counts, self.model, grad)
+            ops += o
+            flops += f
         for kind, a, b, k in self.fusion:
             if kind == "pair":
                 q = a.long().cpu()

@@ -2,14 +2,16 @@
 
 The reference SemanticTraining step (pointstowood/src/trainer.py:96-320
 with loss.py:6-79) as the port and the JAX package define it: the
-network with random 50% centres and masked batch statistics, the Poly-1
-focal loss (gamma 2, epsilon 0.1, label smoothing 0.1, alpha None, the
-reference's clamps) averaged over the valid points, the update applied
-only when the loss and every gradient are finite, clipping by the global
-norm at 1.0 (scaled only when the norm reaches it), then AdamW (betas
-0.9 / 0.999, eps 1e-8, weight decay 0.01 on every parameter, parameters
-without a gradient decayed all the same). The running statistics follow
-``(1 - 0.1) * running + 0.1 * batch`` with the unbiased variance.
+configuration's network (its architecture's plain ``Reference``: for the
+PointsToWood ``Net``, random 50% centres) with masked batch statistics,
+the Poly-1 focal loss (gamma 2, epsilon 0.1, label smoothing 0.1, alpha
+None, the reference's clamps) averaged over the valid points, the update
+applied only when the loss and every gradient are finite, clipping by
+the global norm at 1.0 (scaled only when the norm reaches it), then
+AdamW (betas 0.9 / 0.999, eps 1e-8, weight decay 0.01 on every
+parameter, parameters without a gradient decayed all the same). The
+running statistics follow ``(1 - 0.1) * running + 0.1 * batch`` with the
+unbiased variance.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import math
 
 import torch
 
-from portbench.reference.net import BN_MOMENTUM, Products, RefNet
+from portbench import arch
+from portbench.reference.net import BN_MOMENTUM, Products
 
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -56,11 +59,14 @@ def confusion(logits, labels, mask):
 
 class Trainer:
     """The reference training state: float32 weights (a state_dict-keyed
-    dict) on ``device`` and AdamW's moments."""
+    dict) on ``device`` and AdamW's moments; the network is the plain
+    ``Reference`` of the configuration's architecture
+    (``arch/<name>.py``)."""
 
     def __init__(self, weights: dict, model: dict, device,
                  products: Products | None = None):
         self.model = model
+        self.network = arch.load(model).Reference
         self.products = products or Products()
         self.params = {k: v.detach().to(device, torch.float32).clone()
                        for k, v in weights.items()
@@ -77,7 +83,8 @@ class Trainer:
         sf, labels). Returns the loss, the confusion counts, whether the
         update was applied and the gradients as the optimizer got them."""
         leaves = {k: v.clone().requires_grad_() for k, v in self.params.items()}
-        net = RefNet({**leaves, **self.buffers}, self.model, self.products)
+        net = self.network({**leaves, **self.buffers}, self.model,
+                           self.products)
         logits = net.forward(batch["pos"], batch["refl"], batch["mask"],
                              batch["sf"], training=True, generator=generator)
         loss = poly1_focal_loss(logits, batch["labels"], batch["mask"])

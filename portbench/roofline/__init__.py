@@ -25,6 +25,12 @@ FMA-free selections at 33.5 T operations a second, HBM at 3.35 TB/s).
   (query, union point) pair; bytes: the queries, the union's points and
   payloads, k (distance, payload) a query.
 
+``forward_ops`` and ``net_flops`` follow the PointsToWood ``Net``'s
+stages and are called by ``arch/ptw.py`` alone; another architecture
+counts its own operations and FLOPs in its ``arch/<name>.py`` (with
+``op`` and the rates of ``peaks.json``) and names their kernels in its
+``KERNELS``, merged into ``KERNELS`` here when it is loaded.
+
 ``net_flops`` counts the network's products (2 FLOPs a multiply-add) at
 the valid points, the valid centres and k neighbours a centre; the
 backward counts twice the forward.

@@ -6,8 +6,7 @@ import re
 
 import pytest
 
-from portbench import manifest
-from portbench.weights import param_shapes
+from portbench import arch, manifest
 
 BENCH = json.loads((manifest.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -70,7 +69,7 @@ def test_config_file_as_run(name):
     model = data["model"]
     assert (model["channels"], model["k"], model["fp_k"]) == (32, 32, 2)
     assert model["sa_resolutions"] == [0.04, 0.08, 0.16]
-    assert len(param_shapes(model)) > 250
+    assert len(arch.load(model).param_shapes(model)) > 250
 
 
 def test_last_line_format(tmp_path):

@@ -61,7 +61,7 @@ def test_program_metrics_read_finite_numbers(name):
 def _tables(name):
     from portbench import plots
 
-    traffic = tiny.CELLS[name]
+    traffic = tiny.cell(name).traffic
     return [plots.synthetic_plot(traffic["layout_seed"] + p["seed_offset"],
                                  p["n_side"], p["density"],
                                  seed=2**31 + 11 + p["seed_offset"])[0]

@@ -1,5 +1,6 @@
 """Small versions of the benchmark's cells, for runs on the CPU: the same
-kinds, limits and metrics at C=8 and plots of a few thousand points."""
+kinds, limits and metrics, the cell's configuration (its architecture
+too) at C=8, and plots of a few thousand points."""
 
 import argparse
 import time
@@ -7,10 +8,7 @@ import types
 
 from portbench import harness, manifest
 
-MODEL = dict(num_classes=1, channels=8, k=32, sa_resolutions=[0.04, 0.08, 0.16],
-             stage_fractions=[0.5, 0.5, 0.5], fp_k=2, knn_mode="fast",
-             compute_dtype="bfloat16", voxel_priority="hash",
-             attention_knn=False)
+CHANNELS = 8
 
 PREDICT = dict(
     kind="predict", layout_seed=5,
@@ -32,30 +30,32 @@ TRAIN = dict(kind="train", layout_seed=6, plot=dict(n_side=1, density=0.3),
              learning_rate=1e-4, judged_steps=3, traced_steps=2,
              judged_window_step=[9, 10])
 
-CELLS = {"predict-plot.ptw-net-c32": PREDICT,
-         "predict-largetile.ptw-net-c32": LARGETILE,
-         "train-b8.ptw-net-c32": TRAIN,
-         "train-b8.ptw-attknn-c32": TRAIN}
+# small traffic by the name of the cell's traffic, so that a cell added
+# under one of these mixes gets its small version with no edit here
+TRAFFIC = {"predict-plot": PREDICT, "predict-largetile": LARGETILE,
+           "train-b8": TRAIN}
 
 
-def cell(name: str):
+def cell(name: str, model: dict | None = None):
     """The named cell of BENCHMARK.json (its limits and metrics) with the
-    small configuration and traffic."""
+    small traffic and ``model`` (by default the cell's configuration's)
+    cut to ``CHANNELS``."""
     real = manifest.load(name)
-    model = dict(MODEL, attention_knn=real.config["model"]["attention_knn"])
-    if CELLS[name]["kind"] == "train":
+    traffic = TRAFFIC[real.traffic_name]
+    model = dict(model or real.config["model"], channels=CHANNELS)
+    if traffic["kind"] == "train":
         # at C=8 on 2048-point tiles a bfloat16 step's worst leaf moves
         # further from float32 than at the cells' sizes; the float32
         # program (the second witness of the limits) is judged here
         model["compute_dtype"] = "float32"
     return types.SimpleNamespace(
-        name=name, chips=1, config=dict(model=model), traffic=CELLS[name],
+        name=name, chips=1, config=dict(model=model), traffic=traffic,
         limits=real.limits, end_to_end=real.end_to_end,
         per_layer=real.per_layer)
 
 
 def run(name: str, seed: int = 2**31 + 11, trace: int = 0, control=None,
-        fault=None):
+        fault=None, model: dict | None = None):
     args = argparse.Namespace(workload=name, seed=seed, seconds=0.1,
                               trace=trace, control=control, fault=fault)
-    return harness.run(cell(name), args, "cpu", time.perf_counter())
+    return harness.run(cell(name, model), args, "cpu", time.perf_counter())

@@ -1,11 +1,12 @@
 """Seeded weights of a configuration, made on the device.
 
-The checkpoint layout is the reference's ``Net`` state_dict (keys and
-shapes from the configuration alone, ``param_shapes``); the program loads
-it strictly, so a layout that differs fails the load. Values come from
-one normal draw of a ``torch.Generator`` on the device: linear and 1x1
-conv weights He-scaled, biases N(0, 0.05), BatchNorm scales 1 + N(0, 0.1)
-and shifts N(0, 0.1), running statistics (0, 1).
+The checkpoint layout is the ``state_dict`` of the configuration's
+architecture (``arch/<name>.py``, its ``param_shapes``: keys and shapes
+from the configuration alone); the program loads it strictly, so a
+layout that differs fails the load. Values come from one normal draw of
+a ``torch.Generator`` on the device: linear and 1x1 conv weights
+He-scaled, biases N(0, 0.05), BatchNorm scales 1 + N(0, 0.1) and shifts
+N(0, 0.1), running statistics (0, 1).
 
 ``calibrate`` makes an eval network whose probabilities spread over both
 classes: the reference network's batch statistics over a batch of the
@@ -13,9 +14,9 @@ plot's points become the running statistics (each variance floored at
 its layer's median, ``VAR_FLOOR``: a channel nearly constant on that
 batch would otherwise scale other tiles' activations without bound, and
 the network's outputs then swing by whole units under rounding), and the
-head's last layer
-centres and scales the logits (median 0, median absolute deviation
-``LOGIT_SPREAD``), so that few probabilities saturate.
+head's last layer (the architecture's ``HEAD``) centres and scales the
+logits (median 0, median absolute deviation ``LOGIT_SPREAD``), so that
+few probabilities saturate.
 """
 
 from __future__ import annotations
@@ -23,74 +24,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.reference.net import RefNet
+from portbench import arch
 
 LOGIT_SPREAD = 1.0
 VAR_FLOOR = 1.0
 
 
-def _bn(out: dict, name: str, n: int) -> None:
-    for p in ("weight", "bias", "running_mean", "running_var"):
-        out[f"{name}.{p}"] = (n,)
-    out[f"{name}.num_batches_tracked"] = ()
-
-
-def _lin(out: dict, name: str, n_out: int, n_in: int, conv: bool = False):
-    out[f"{name}.weight"] = (n_out, n_in, 1) if conv else (n_out, n_in)
-    out[f"{name}.bias"] = (n_out,)
-
-
-def param_shapes(model: dict) -> dict:
-    """name -> shape of every tensor of the state_dict."""
-    c = model["channels"]
-    out: dict = {}
-    _lin(out, "stem_mlp.0.0", c, 3)
-    specs = [(c + 4, 2 * c, 4 * c), (4 * c + 4, 6 * c, 8 * c),
-             (8 * c + 4, 12 * c, 16 * c)]
-    for i, (a, b, d) in enumerate(specs):
-        s = f"sa{i + 1}_module"
-        _lin(out, f"{s}.reflectanceyesno.fc1", 32, 1)
-        _lin(out, f"{s}.reflectanceyesno.fc2", 32, 32)
-        _lin(out, f"{s}.reflectanceyesno.fc3", 1, 32)
-        if model.get("attention_knn") and i > 0:
-            att, cin = a // 2, a - 4
-            _lin(out, f"{s}.atsearch.blending.feat1", att, cin + att)
-            _lin(out, f"{s}.atsearch.blending.feat2", 1, att)
-            _lin(out, f"{s}.atsearch.blending.pos1", att, 3 + att)
-            _lin(out, f"{s}.atsearch.blending.pos2", 1, att)
-        _lin(out, f"{s}.conv.local_nn.0.0", b, a)
-        _lin(out, f"{s}.conv.local_nn.1.0", d, b)
-        _bn(out, f"{s}.conv.local_nn.1.2", d)
-        r, e = f"{s}.residual_block", 4 * d
-        _lin(out, f"{r}.expand.0", e, d, conv=True)
-        _bn(out, f"{r}.expand.1", e)
-        for j in (0, 3):
-            out[f"{r}.conv.{j}.depthwise_conv.weight"] = (e, 1, 1)
-            out[f"{r}.conv.{j}.depthwise_conv.bias"] = (e,)
-            _bn(out, f"{r}.conv.{j}.depthwise_bn", e)
-            _lin(out, f"{r}.conv.{j}.pointwise_conv", e, e, conv=True)
-            _bn(out, f"{r}.conv.{j}.pointwise_bn", e)
-        _bn(out, f"{r}.conv.1", e)
-        _bn(out, f"{r}.conv.4", e)
-        _lin(out, f"{r}.project.0", d, e, conv=True)
-        _bn(out, f"{r}.project.1", d)
-    for name, widths in (("sa4", (16 * c + 3, 16 * c, 16 * c)),
-                         ("fp4", (32 * c, 24 * c, 16 * c)),
-                         ("fp3", (24 * c, 20 * c, 16 * c)),
-                         ("fp2", (20 * c, 16 * c, 16 * c)),
-                         ("fp1", (17 * c, 16 * c, 16 * c))):
-        _lin(out, f"{name}_module.NN.0.0", widths[1], widths[0])
-        _lin(out, f"{name}_module.NN.1.0", widths[2], widths[1])
-        _bn(out, f"{name}_module.NN.1.2", widths[2])
-    _lin(out, "conv1", 16 * c, 16 * c, conv=True)
-    _bn(out, "norm", 16 * c)
-    _lin(out, "conv2", model["num_classes"], 16 * c, conv=True)
-    return out
-
-
 def make_weights(model: dict, seed: int, device) -> dict:
     """The seeded float32 weights (int64 batch counters) on ``device``."""
-    shapes = param_shapes(model)
+    shapes = arch.load(model).param_shapes(model)
     floats = {k: s for k, s in shapes.items()
               if not k.endswith("num_batches_tracked")}
     total = sum(int(np.prod(s)) for s in floats.values())
@@ -159,21 +101,23 @@ def calibrate(weights: dict, model: dict, batch: dict, device) -> dict:
     their layer's median), then the head's last layer scaled and
     shifted so that the logits over its valid points have median 0 and
     median absolute deviation ``LOGIT_SPREAD``. Returns new weights."""
+    net_arch = arch.load(model)
     w = dict(weights)
     t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     with torch.no_grad():
-        net = RefNet(w, model)
+        net = net_arch.Reference(w, model)
         net.forward(t["pos"], t["refl"], t["mask"], t["sf"],
                     training=False, batch_stats=True)
         for name, (mean, var, _) in net.stats.items():
             w[f"{name}.running_mean"] = mean.clone()
             w[f"{name}.running_var"] = torch.maximum(
                 var, VAR_FLOOR * var.median())
-        logits = RefNet(w, model).forward(t["pos"], t["refl"], t["mask"],
-                                          t["sf"])
+        logits = net_arch.Reference(w, model).forward(
+            t["pos"], t["refl"], t["mask"], t["sf"])
         z = logits[t["mask"]]
         mid = z.median()
         spread = (z - mid).abs().median().clamp(min=1e-6) / LOGIT_SPREAD
-        w["conv2.weight"] = w["conv2.weight"] / spread
-        w["conv2.bias"] = (w["conv2.bias"] - mid) / spread
+        head = net_arch.HEAD
+        w[f"{head}.weight"] = w[f"{head}.weight"] / spread
+        w[f"{head}.bias"] = (w[f"{head}.bias"] - mid) / spread
     return w
