@@ -71,6 +71,15 @@ exits non-zero and prints no final line):
                k = 2/8/16/32/48/64/65/96/128/200/512;
                ``pair_select`` entries with empty fine or coarse regions,
                a union shorter than k, q_len 0 and Q, a NaN query.
+3b. ptv1    -- Point Transformer's kernels at the train-b8.ptv1-seg50
+               cell's shapes (``ptv1_phase``): ``fps`` at its four levels
+               and on inputs that break a wrong sampling
+               (``fps_adversarial_inputs``: distance ties, a short and an
+               empty row, N = 32768), and ``knn_topk`` at K = 8 / 16 / 3
+               over 64-16384 sources, all bit for bit against the plain
+               versions and timed; then the network's launches, forward
+               and train step ms and peak memory. ``--only ptv1`` runs
+               phases 1, 2 and this one alone.
 4. forward  -- ``run_inference`` over a synthetic plot (8 full 16384-point
                tiles and a few smaller ones, two capacity buckets) with
                seeded random weights loaded through ``state_dict_from_flax``;
@@ -4076,6 +4085,377 @@ def ddp_phase(smi, ply_path, ckpt):
             [p["launches"] for p in preds])
 
 
+PTV1_VALID = (16384, 16384, 12000, 9000, 8192, 15001, 10007, 16383)
+
+
+def fps_adversarial_inputs(seed):
+    """``fps`` inputs that break a wrong sampling, from numpy: (name, pos
+    (B, N, 3), n_valid a row, counts a row or None for n_valid // 4, m):
+    coordinates on a coarse grid (exact distance ties everywhere), every
+    point of a row on one spot, a short padded row and an empty one,
+    counts past the slots (clamped), odd and tiny N, and N = 32768 (the
+    kernel's path without shared memory)."""
+    rng = np.random.default_rng(seed)
+    grid = rng.integers(0, 4, (4, 2048, 3)).astype(np.float32)
+    same = np.full((2, 1024, 3), 0.25, np.float32)
+    return [
+        ("grid ties", grid, [2048, 2048, 1500, 777], None, 512),
+        ("one spot", same, [1024, 600], None, 256),
+        ("short and empty rows", rng.normal(size=(3, 1024, 3)).astype(
+            np.float32), [5, 0, 1024], None, 256),
+        ("counts past the slots", rng.normal(size=(2, 300, 3)).astype(
+            np.float32), [300, 299], [100, 80], 64),
+        ("N = 100", rng.normal(size=(3, 100, 3)).astype(np.float32),
+         [100, 37, 1], None, 25),
+        ("N = 1", rng.normal(size=(2, 1, 3)).astype(np.float32), [1, 0],
+         [1, 0], 1),
+        ("N = 32768", rng.uniform(-2, 2, (2, 32768, 3)).astype(np.float32),
+         [32768, 20001], None, 8192),
+    ]
+
+
+def ptv1_phase(dev, smi, rows, ptxas):
+    """Phase ``ptv1``: Point Transformer's kernels at the
+    ``train-b8.ptv1-seg50`` cell's shapes (B = 8 rows of 16384 slots,
+    mixed valid counts ``PTV1_VALID``): ``fps`` at each level
+    (16384 -> 4096 -> 1024 -> 256 -> 64, floor(n_valid / 4) picks a
+    row) bit for bit against ``fps_plain``, timed against its bound;
+    ``knn_topk`` at each level's self-search (K = 8 at level 1, 16
+    below: 16384, 4096, 1024, 256 and 64 sources), centre search (K = 16)
+    and interpolation search (k = 3), bit for bit against
+    ``select_plain``; ``interp_blend`` and ``interp_blend_bwd`` of each
+    TransitionUp (8x16384 <- 4096, 4096 <- 1024, 1024 <- 256, 256 <- 64
+    at C = 32, 64, 128, 256 bf16) on the model's own (idx, sqrt(d2) +
+    1e-8) from those k = 3 searches, the forward within a bf16 step of
+    ``blend_plain``, the backward bit for bit against
+    ``blend_bwd_plain``, each timed against its bound; ``fps`` on
+    ``fps_adversarial_inputs``, bit for bit; then the network
+    (``PointTransformerSeg``, C = 32, bf16, fast kNN, torch's
+    initialisation) on that batch: launches a forward and a training
+    forward and backward (``layers``, launched kernel by kernel: the
+    step's replayed graphs launch the same kernels), forward ms, the
+    replayed step's ms, peak memory (the process's)."""
+    import torch
+
+    from pointstowood_tpu_torch.config import TrainConfig
+    from pointstowood_tpu_torch.model import PointTransformerSeg
+    from pointstowood_tpu_torch.ops.fps_kernels import fps, fps_plain
+    from pointstowood_tpu_torch.ops.interp_kernels import (
+        blend_bwd_plain,
+        blend_plain,
+        interp_blend,
+        interp_blend_bwd,
+    )
+    from pointstowood_tpu_torch.ops.knn import knn_masked
+    from pointstowood_tpu_torch.ops.knn_kernels import knn_topk, select_plain
+    from pointstowood_tpu_torch.train import trainer
+
+    def fps_check(name, p, m, counts, slots):
+        i_k, v_k = fps(p, m, counts, slots)
+        torch.cuda.synchronize()
+        i_p, v_p = fps_plain(p, m, counts, slots)
+        if not (torch.equal(i_k, i_p) and torch.equal(v_k, v_p)):
+            moved = float((i_k != i_p).float().mean())
+            raise AssertionError(f"fps {name}: {moved:.2e} of the picks "
+                                 "differ from the plain version")
+        return i_k, v_k
+
+    rng = np.random.default_rng(SEED + 18)
+    b, n = len(PTV1_VALID), max(PTV1_VALID)
+    valid_n = torch.tensor(PTV1_VALID, device=dev)
+    pos = torch.from_numpy(rng.uniform(-2.0, 2.0, (b, n, 3)).astype(
+        np.float32)).to(dev)
+    mask = torch.arange(n, device=dev)[None] < valid_n[:, None]
+    levels = [(pos, mask)]
+    rows_b = torch.arange(b, device=dev)[:, None]
+    regs = {k: v for k, v in ptxas.items() if k.startswith("fps_kernel")}
+    for lvl in range(1, 5):
+        p, m = levels[-1]
+        slots = p.shape[1] // 4
+        counts = m.sum(1) // 4
+        idx, valid = fps_check(f"level {lvl + 1}", p, m, counts, slots)
+
+        def call(p=p, m=m, counts=counts, slots=slots):
+            return fps(p, m, counts, slots)
+
+        nv, picks = m.sum(1).double(), counts.double()
+        bms, by = bound(10.0 * float((nv * picks).sum()),
+                        13.0 * float(nv.sum()) + 8.0 * float(picks.sum()),
+                        LANE_OPS_PER_S)
+        rows.append({
+            "name": f"fps level {lvl + 1}", "check": "ok", "route": "cuda",
+            "source": "pointstowood_tpu_torch/csrc/fps.cu",
+            "replaces": "none (Point Transformer's furthestsampling)",
+            "wrapper": "fps", "shape": [b, p.shape[1], slots],
+            "picks": int(picks.sum()), "ms": cuda_ms(call),
+            "bracketed_ms": bracketed_ms(call),
+            "plain_ms": cuda_ms(lambda: fps_plain(p, m, counts, slots),
+                                reps=1, warmup=1),
+            "bound_ms": bms, "bound_by": by, "registers": regs})
+        emit("kernel", **rows[-1])
+        levels.append((p[rows_b, idx], valid))
+
+    knn_src = "pointstowood_tpu_torch/csrc/knn.cu"
+    cases = [(f"knn_topk ptv1 self L{i + 1}", i, i, 8 if i == 0 else 16)
+             for i in range(5)]
+    cases += [(f"knn_topk ptv1 centres L{i + 1}", i, i - 1, 16)
+              for i in range(1, 5)]
+    cases += [(f"knn_topk ptv1 interp L{i}", i - 1, i, 3)
+              for i in range(1, 5)]
+    for name, ri, ci, k in cases:
+        (r, rm), (c, cm) = levels[ri], levels[ci]
+        d_k, i_k = knn_topk(r, c, cm, k)
+        torch.cuda.synchronize()
+        check_exact(name, d_k, i_k, *select_plain(r, c, cm, k))
+        pairs = float((rm.sum(1).double() * cm.sum(1).double()).sum())
+        bms, by = bound(8.0 * pairs, 13.0 * float(rm.sum() + cm.sum())
+                        + 8.0 * k * float(rm.sum()), LANE_OPS_PER_S)
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda", "source": knn_src,
+            "replaces": "none (Point Transformer's knnquery)",
+            "wrapper": "knn_topk", "shape": [b, r.shape[1], c.shape[1], k],
+            "ms": cuda_ms(lambda: knn_topk(r, c, cm, k)),
+            "bound_ms": bms, "bound_by": by, "distance_pairs": pairs})
+        emit("kernel", **rows[-1])
+
+    # each TransitionUp's blend: the coarser level's C_{l-1} features onto
+    # the finer level's points, at the model's (idx, sqrt(d2) + 1e-8)
+    # (a centre on its own point weighs 1e8)
+    interp_src = "pointstowood_tpu_torch/csrc/interp.cu"
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    for lvl in range(1, 5):
+        (fp, fm), (cp, cm) = levels[lvl - 1], levels[lvl]
+        c = 32 * 2 ** (lvl - 1)
+        idx, d2, _ = knn_masked(fp, cp, 3, query_mask=fm, source_mask=cm,
+                                method="topk")
+        dist = torch.sqrt(d2) + 1e-8
+        x = torch.randn((b, cp.shape[1], c), generator=g, device=dev).to(
+            torch.bfloat16)
+        name = f"interp_blend ptv1 L{lvl}<-L{lvl + 1}"
+        y_k = interp_blend(x, idx, dist, fm)
+        torch.cuda.synchronize()
+        y_p = blend_plain(x, idx, dist, fm)
+        err = float((y_k.float() - y_p.float()).abs().max())
+        tol = 1e-2 * float(y_p.float().abs().max())  # one bf16 step
+        if not (torch.isfinite(y_k.float()).all() and err <= tol):
+            raise AssertionError(f"{name}: max abs err {err} > {tol}")
+        live = torch.isfinite(dist) & fm[..., None]
+        flat = (idx.long() + (torch.arange(b, device=dev)
+                              * cp.shape[1])[:, None, None])[live]
+        n_rows_read = int(torch.unique(flat).numel())
+        n_t = fp.shape[1]
+        bms, by = bound(float(live.sum()) * 2 * c + float(fm.sum()) * c,
+                        n_rows_read * c * 2 + b * n_t * (3 * 8 + 1)
+                        + b * n_t * c * 2)
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda",
+            "source": interp_src,
+            "replaces": "none (Point Transformer's interpolation)",
+            "wrapper": "interp_blend", "shape": [b, n_t, cp.shape[1], c],
+            "max_abs_err": err, "bit_equal": bool(torch.equal(y_k, y_p)),
+            "ms": cuda_ms(lambda: interp_blend(x, idx, dist, fm)),
+            "bound_ms": bms, "bound_by": by})
+        emit("kernel", **rows[-1])
+        d_y = torch.randn((b, n_t, c), generator=g, device=dev).to(
+            torch.bfloat16)
+        name = f"interp_blend_bwd ptv1 L{lvl}<-L{lvl + 1}"
+
+        def call(d_y=d_y, idx=idx, dist=dist, fm=fm, n_s=cp.shape[1]):
+            return interp_blend_bwd(d_y, idx, dist, fm, n_s)
+        d_k = call()
+        torch.cuda.synchronize()
+        check_blend_bwd(name, d_k, blend_bwd_plain(d_y, idx, dist, fm,
+                                                   cp.shape[1]))
+        check_blend_bwd(f"{name}, second call", call(), d_k)
+        n_live = int(live.sum())
+        bms, by = bound(2.0 * n_live * c + float(fm.sum()) * c,
+                        b * n_t * c * 2 + b * n_t * (3 * 8 + 1)
+                        + b * cp.shape[1] * c * 2)
+        rows.append({
+            "name": name, "check": "ok", "route": "cuda",
+            "source": interp_src,
+            "replaces": "none (Point Transformer's interpolation)",
+            "wrapper": "interp_blend_bwd", "shape": [b, n_t, cp.shape[1], c],
+            "live_slots": n_live, "tolerance": "bit for bit (torch.equal), "
+            "and the same tensor on a second call",
+            "ms": cuda_ms(call), "bound_ms": bms, "bound_by": by})
+        emit("kernel", **rows[-1])
+
+    adversarial = []
+    for name, p_np, nv, cnt, slots in fps_adversarial_inputs(SEED + 19):
+        p = torch.from_numpy(p_np).to(dev)
+        m = (torch.arange(p.shape[1], device=dev)[None]
+             < torch.tensor(nv, device=dev)[:, None])
+        counts = (m.sum(1) // 4 if cnt is None
+                  else torch.tensor(cnt, device=dev))
+        fps_check(name, p, m, counts, slots)
+        adversarial.append(name)
+    emit("fps_adversarial", cases=adversarial, check="ok")
+
+    torch.manual_seed(SEED)
+    net = PointTransformerSeg(channels=32, dtype=torch.bfloat16).to(dev)
+    refl = torch.from_numpy(rng.uniform(-1, 1, (b, n)).astype(
+        np.float32)).to(dev)
+    sf = pos.norm(dim=-1).amax(1)
+    labels = (torch.from_numpy(rng.random((b, n))) < 0.3).float().to(dev)
+    wrappers = {"fps": fps, "knn_topk": knn_topk,
+                "interp_blend": interp_blend,
+                "interp_blend_bwd": interp_blend_bwd}
+    with torch.no_grad():
+        net.eval()
+        net(pos, refl, mask, sf)
+        for fn in wrappers.values():
+            fn.launches = 0
+        logits = net(pos, refl, mask, sf)
+        torch.cuda.synchronize()
+    fwd_launches = {k: fn.launches for k, fn in wrappers.items()}
+    if not bool(torch.isfinite(logits[mask]).all()):
+        raise AssertionError("PointTransformerSeg: non-finite logits")
+    if fwd_launches["fps"] != 4:
+        raise AssertionError(f"PointTransformerSeg: {fwd_launches['fps']} "
+                             "fps launches a forward, not 4")
+    fwd = []
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net(pos, refl, mask, sf)
+            torch.cuda.synchronize()
+            fwd.append((time.perf_counter() - t0) * 1e3)
+    net.train()
+    # a training forward and backward launched kernel by kernel count a
+    # step's launches (its replayed graphs launch the same kernels and
+    # count none)
+    for fn in wrappers.values():
+        fn.launches = 0
+    net.layers(pos, refl, mask, sf, False)[mask].float().sum().backward()
+    torch.cuda.synchronize()
+    step_launches = {k: fn.launches for k, fn in wrappers.items()}
+    cfg = TrainConfig()
+    step = trainer.make_train_step(net, trainer.make_optimizer(net, cfg), cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step(pos, refl, mask, sf, labels, 1e-4, gen)
+    torch.cuda.synchronize()
+    times, finite_all = [], True
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, _, finite = step(pos, refl, mask, sf, labels, 1e-4, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        finite_all &= finite
+    if not finite_all:
+        raise AssertionError("PointTransformerSeg: a train step was not "
+                             "finite")
+    traced = ptv1_traced_step(net, step, (pos, refl, mask, sf, labels),
+                              gen)
+    update_check = update_arithmetic_check(dev)
+    if step_launches["interp_blend_bwd"] != 4:
+        raise AssertionError(f"PointTransformerSeg: "
+                             f"{step_launches['interp_blend_bwd']} blend "
+                             "backward launches a step, not 4")
+    for row in rows:
+        if row["name"].startswith("fps level") or " ptv1 " in row["name"]:
+            row["launches_forward"] = fwd_launches[row["wrapper"]]
+            row["launches_train_step"] = step_launches[row["wrapper"]]
+    emit("ptv1", nvidia_smi=smi, batch=[b, n], n_valid=list(PTV1_VALID),
+         launches_forward=fwd_launches, launches_train_step=step_launches,
+         forward_ms=statistics.median(fwd), forward_ms_all=fwd,
+         train_step_ms=statistics.median(times), train_step_ms_all=times,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+         cuda_graphs=sorted(str(k[0][0]) for k in net._graphs),
+         traced_step=traced, update_arithmetic=update_check)
+    del net, step
+
+
+def update_arithmetic_check(dev) -> dict:
+    """The train step's guard and clip on the card (``all_finite``,
+    ``clip_by_global_norm_`` inside a step's ``_replaying``) against the
+    per-tensor arithmetic they replace, bit for bit, below and past the
+    limit: a chain of 0-d additions for the norm, ``g / norm * limit`` a
+    tensor, one finiteness check a tensor; each case twice (the second
+    replays the captured graphs)."""
+    import torch
+
+    from pointstowood_tpu_torch.train import trainer
+
+    def old_clip(grads, max_norm):
+        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        keep = norm < max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * max_norm))
+        return norm
+
+    rng = np.random.default_rng(SEED + 21)
+    grads = [torch.from_numpy(rng.standard_normal(tuple(
+        rng.integers(1, 300, size=int(rng.integers(1, 3))))).astype(
+        np.float32)).to(dev) for _ in range(600)]
+    replays, cases = {}, []
+    for scale in (1e-4, 1e-3, 0.03, 1.0, 30.0):
+        for _ in range(2):
+            for g, v in zip(grads, rng.standard_normal(len(grads))):
+                g.normal_(0.0, scale * abs(float(v)))
+            old = [g.clone() for g in grads]
+            with trainer._replaying(replays):
+                finite = bool(trainer.all_finite(torch.tensor(0.5, device=dev),
+                                                 grads))
+                norm = trainer.clip_by_global_norm_(grads, 1.0)
+            want = old_clip(old, 1.0)
+            if not (finite and torch.equal(norm, want)
+                    and all(torch.equal(a, b) for a, b in zip(grads, old))):
+                raise AssertionError(f"update arithmetic: scale {scale}, "
+                                     f"norm {float(norm)} vs {float(want)}")
+            cases.append(float(want))
+    grads[123].view(-1)[0] = float("nan")
+    with trainer._replaying(replays):
+        if bool(trainer.all_finite(torch.tensor(0.5, device=dev), grads)):
+            raise AssertionError("update arithmetic: a NaN gradient passed")
+    return {"norms": cases, "check": "ok"}
+
+
+def ptv1_traced_step(net, step, batch, gen) -> dict:
+    """A traced step of the replayed graphs: ``trace_graphs()``, one step
+    to capture them again with stamps, then one under ``torch.profiler``.
+    Its ``pt.fps`` spans (from the stamps) must hold the ``fps_kernel``
+    time the profiler records in the replay (the span adds a division
+    and the launch gaps), and it must record 4 ``pt.fps``, 5 ``pt.knn``
+    and 18 ``pt.attention`` spans and the ``pt.pairs`` counter."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointstowood_tpu_torch.utils import trace
+
+    net.trace_graphs()
+    step(*batch, 1e-4, gen)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*batch, 1e-4, gen)
+        torch.cuda.synchronize()
+    rec = trace.collected()
+    ms = {}
+    for sp in rec["spans"]:
+        if sp["name"].startswith("pt.") and sp["device_ms"] is not None:
+            a, b = sp["device_ms"]
+            ms.setdefault(sp["name"], []).append(b - a)
+    fps_kernel_ms = sum(
+        e.duration_ns() for e in prof.profiler.kineto_results.events()
+        if "fps_kernel" in e.name() and "CUDA" in str(e.device_type())) * 1e-6
+    counts = {k: len(v) for k, v in ms.items()}
+    if counts != {"pt.fps": 4, "pt.knn": 5, "pt.attention": 18}:
+        raise AssertionError(f"traced replay: spans {counts}")
+    fps_ms = sum(ms["pt.fps"])
+    if not fps_kernel_ms <= fps_ms <= fps_kernel_ms + 0.5:
+        raise AssertionError(f"traced replay: pt.fps spans {fps_ms} ms, "
+                             f"fps_kernel {fps_kernel_ms} ms")
+    pairs = rec["counters"].get("pt.pairs", 0)
+    if pairs <= 0:
+        raise AssertionError("traced replay: no pt.pairs")
+    return {"spans": counts, "pt.fps_ms": fps_ms,
+            "fps_kernel_ms": fps_kernel_ms,
+            "pt.attention_ms": sum(ms["pt.attention"]),
+            "pt.knn_ms": sum(ms["pt.knn"]), "pt.pairs": pairs}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4089,6 +4469,9 @@ def main(argv=None) -> int:
              "(with their headers): its knn_topk, knn_top2, pair_select, "
              "group_min, interpolation backward and knn_topk_dim are timed "
              "in turns with the current ones at the same shapes")
+    parser.add_argument(
+        "--only", choices=("ptv1",), default=None,
+        help="run the device and build phases, then this phase alone")
     parser.add_argument(
         "--accuracy-epochs", type=int, default=ACCURACY_EPOCHS,
         help="epochs of the accuracy phase's C=32 training (the reference "
@@ -4197,6 +4580,16 @@ def main(argv=None) -> int:
                        for n, v in old_sass.items()},
              per_pair_columns=["earlier", "current"])
 
+    if opts.only == "ptv1":
+        rows = []
+        ptv1_phase(dev, smi, rows, ptxas)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     # ---- 3. kernels at the canonical shapes
     tiles = synthetic_tiles(SEED)
     model_cfg = ModelConfig()  # C=32, k=32, fast, bf16, hash voxels
@@ -4296,6 +4689,7 @@ def main(argv=None) -> int:
     topk_passes_rows(lv, rows)
     top2_lanes_phase(lv, selected)
     adversarial_phase(dev)
+    ptv1_phase(dev, smi, rows, ptxas)
 
     # K3 at FP3 (the FP3 top-2 above), FP2 and FP1 (the SA2 and SA1
     # transposes): 512 bf16 channels on the coarser level's points,
@@ -4552,7 +4946,7 @@ def main(argv=None) -> int:
     adversarial_bwd_phase(dev)
     for row in rows:
         row.setdefault("launches_forward", fwd_launches[row["wrapper"]])
-        row["launches_forward_32768"] = fwd32_launches[row["wrapper"]]
+        row["launches_forward_32768"] = fwd32_launches.get(row["wrapper"], 0)
     train_crosscheck(dev, SEED)
     train_wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
                       "interp_blend": interp_blend,

@@ -73,6 +73,10 @@ def parse_args(argv=None):
     parser.add_argument('--output_fmt', default='ply', help='file type of output')
     parser.add_argument('--vxdir', type=str, default=None,
                         help='optional directory to also write voxel_N.npy tiles')
+    parser.add_argument('--arch', default='ptw', choices=['ptw', 'ptv1'],
+                        help='network: ptw, the PointsToWood Net; ptv1, '
+                             'Point Transformer (pointtransformer_seg50; '
+                             '.pth checkpoints only)')
     parser.add_argument('--channels', type=int, default=32,
                         help='backbone width C (must match the checkpoint)')
     parser.add_argument('--dtype', default='bfloat16',
@@ -96,7 +100,10 @@ def parse_args(argv=None):
                              'counters of every thread on its clock '
                              '(program_spans.json)')
     parser.add_argument('--verbose', action='store_true', help='print stuff')
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.arch != 'ptw' and not args.model.endswith(('.pth', '.pt')):
+        parser.error(f'--arch {args.arch} takes a .pth or .pt --model')
+    return args
 
 
 def resolve_model_path(model: str) -> str:
@@ -178,6 +185,7 @@ def _run(args, device):
         max_pts=args.max_pts, resolution=args.resolution,
     )
     model_cfg = ModelConfig(
+        arch=args.arch,
         channels=args.channels,
         **({'knn_mode': 'exact'} if args.exact_knn else {}),
         compute_dtype=args.dtype,

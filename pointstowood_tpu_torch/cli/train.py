@@ -61,6 +61,10 @@ def parse_args(argv=None):
     parser.add_argument('--wandb', action='store_true')
     parser.add_argument('--wdir', type=str, default='.',
                         help='working directory containing data/ and model/')
+    parser.add_argument('--arch', default='ptw', choices=['ptw', 'ptv1'],
+                        help='network: ptw, the PointsToWood Net; ptv1, '
+                             'Point Transformer (pointtransformer_seg50; '
+                             '.pth checkpoints only)')
     parser.add_argument('--channels', type=int, default=32,
                         help='backbone width C (reference fixes C=32)')
     parser.add_argument('--dtype', default='bfloat16',
@@ -68,7 +72,10 @@ def parse_args(argv=None):
                         help='activation compute dtype (bfloat16 = AMP-'
                              'equivalent fast path, float32 = exact)')
     parser.add_argument('--verbose', action='store_true')
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.arch != 'ptw' and not args.model.endswith(('.pth', '.pt')):
+        parser.error(f'--arch {args.arch} takes a .pth or .pt --model')
+    return args
 
 
 def _preprocess(paths, tiling_cfg, vxdir):
@@ -179,7 +186,8 @@ def main(argv=None, device=None):
         print('\n----- Semantic segmentation started -----')
     _, history = semantic_training(
         train_tiles, train_cfg,
-        ModelConfig(channels=args.channels, compute_dtype=args.dtype), tiling_cfg,
+        ModelConfig(arch=args.arch, channels=args.channels,
+                    compute_dtype=args.dtype), tiling_cfg,
         wdir=args.wdir, model_name=args.model, test_tiles=test_tiles,
         checkpoints=checkpoints.tolist(), use_wandb=args.wandb,
         verbose=args.verbose, device=dev, group=group,

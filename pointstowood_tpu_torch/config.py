@@ -36,6 +36,11 @@ class TilingConfig:
 class ModelConfig:
     """Backbone hyperparameters (reference: pointstowood/src/model.py:204-224)."""
 
+    # The network: 'ptw' the PointsToWood Net (model/network.py), 'ptv1'
+    # Point Transformer pointtransformer_seg50 at planes channels x (1, 2,
+    # 4, 8, 16) (model/point_transformer.py), which reads num_classes,
+    # channels, knn_mode and compute_dtype of the fields below.
+    arch: str = "ptw"
     num_classes: int = 1
     channels: int = 32  # "C" in the reference
     k: int = 32  # neighbors per center at every SA stage

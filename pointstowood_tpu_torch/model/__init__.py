@@ -4,5 +4,7 @@ from pointstowood_tpu_torch.model.layers import (
     RefMLP,
 )
 from pointstowood_tpu_torch.model.network import Net
+from pointstowood_tpu_torch.model.point_transformer import PointTransformerSeg
 
-__all__ = ["Net", "MaskedBatchNorm", "RefMLP", "InvertedResidualBlock"]
+__all__ = ["Net", "PointTransformerSeg", "MaskedBatchNorm", "RefMLP",
+           "InvertedResidualBlock"]

@@ -33,7 +33,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("knn", "interp", "fusion", "group_min", "knn_dim")
+SOURCES = ("knn", "interp", "fusion", "group_min", "knn_dim", "fps",
+           "stamp")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -66,6 +67,12 @@ _SIGNATURES = {
         "ptw_knn_dim_filter": [_P] * 13 + [_I] * 8 + [_P],
         "ptw_knn_dim_rescore": [_P] * 8 + [_I] * 6 + [_P],
         "ptw_knn_dim_exhaustive": [_P] * 6 + [_I] * 6 + [_P],
+    },
+    "fps": {
+        "ptw_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "stamp": {
+        "ptw_stamp": [_P, _I, _P],
     },
 }
 

@@ -23,7 +23,12 @@ Two methods:
   whose cross term is truncated to the first four coordinates (ROADMAP.md
   section 3).
 
-Return contract (both methods, as in the JAX package): idx is 0 where
+A third, ``"topk"``, is the exact selection at every shape: ``knn_topk``
+(CUDA, or its plain version on the CPU) for D = 3, whatever the route
+gates say, for networks that owe the JAX package no parity (Point
+Transformer, ``model/point_transformer.py``).
+
+Return contract (every method, as in the JAX package): idx is 0 where
 invalid, d2 is +inf where invalid, and valid is the query mask AND a finite
 d2.
 """
@@ -98,8 +103,9 @@ def knn_masked(query_pos: torch.Tensor, source_pos: torch.Tensor, k: int,
     Args:
       query_pos: (B, Q, D); source_pos: (B, N, D) (cast to fp32).
       k: neighbours; query_mask (B, Q) / source_mask (B, N): bool.
-      method: "exact" (plain parity path) or "fast" (CUDA kernels: at
-        D = 3 routed by ``fast_route``, else ``knn_topk_dim``).
+      method: "exact" (plain parity path), "fast" (CUDA kernels: at
+        D = 3 routed by ``fast_route``, else ``knn_topk_dim``) or "topk"
+        (``knn_topk`` at every shape; D = 3).
 
     Returns idx (B, Q, k) int64 (0 where invalid), d2 (B, Q, k) fp32
     (+inf where invalid), valid (B, Q, k) bool.
@@ -122,6 +128,9 @@ def knn_masked(query_pos: torch.Tensor, source_pos: torch.Tensor, k: int,
             d2, idx = knn_top2(q, s, smask)
         else:
             d2, idx = knn_topk(q, s, smask, k_eff)
+        idx = idx.long()
+    elif method == "topk":
+        d2, idx = knn_topk(q.contiguous(), s.contiguous(), smask, k_eff)
         idx = idx.long()
     else:
         raise ValueError(f"unknown kNN method {method!r}")

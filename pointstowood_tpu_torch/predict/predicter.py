@@ -36,6 +36,7 @@ from pointstowood_tpu_torch.config import (
 from pointstowood_tpu_torch.data.dataset import TileBatcher
 from pointstowood_tpu_torch.data.tiling import Tile, xyz_of
 from pointstowood_tpu_torch.model import Net
+from pointstowood_tpu_torch.model.point_transformer import PointTransformerSeg
 from pointstowood_tpu_torch.ops.voxel import check_voxel_pack_range
 from pointstowood_tpu_torch.parallel.mesh import (
     DataGroup,
@@ -54,12 +55,21 @@ from pointstowood_tpu_torch.utils import trace
 from pointstowood_tpu_torch.utils.device import resolve_device
 
 
-def build_net(model_cfg: ModelConfig, device=None) -> Net:
-    """The eval-mode Net of a model config, on ``device`` (default CUDA).
-    Load weights with ``utils.checkpoint.load_checkpoint`` or
-    ``net.load_state_dict`` (reference layout; see
+def build_net(model_cfg: ModelConfig, device=None) -> torch.nn.Module:
+    """The eval-mode network of a model config (``model_cfg.arch``: the
+    ``Net``, or ``PointTransformerSeg`` for 'ptv1'), on ``device``
+    (default CUDA). Load weights with ``utils.checkpoint.load_checkpoint``
+    or ``net.load_state_dict`` (reference layout; see
     utils/checkpoint_convert.py)."""
     dev = resolve_device(device)
+    if model_cfg.arch == "ptv1":
+        net = PointTransformerSeg(
+            num_classes=model_cfg.num_classes, channels=model_cfg.channels,
+            knn_method=model_cfg.knn_mode,
+            dtype=getattr(torch, model_cfg.compute_dtype))
+        return net.to(dev).eval()
+    if model_cfg.arch != "ptw":
+        raise ValueError(f"unknown architecture {model_cfg.arch!r}")
     net = Net(
         num_classes=model_cfg.num_classes,
         channels=model_cfg.channels,
@@ -122,7 +132,9 @@ def run_inference(
     as one process would. A sink cannot hold the other processes' rows
     (as in the JAX package): it is refused under a group."""
     dev = resolve_device(device)
-    check_voxel_pack_range(max(tiling_cfg.grid_size), min(net.sa_resolutions))
+    if isinstance(net, Net):
+        check_voxel_pack_range(max(tiling_cfg.grid_size),
+                               min(net.sa_resolutions))
     if sink is not None and spans_processes(group):
         raise ValueError("run_inference: a FlatSink takes one process's "
                          "batches; under a data group fuse from the "

@@ -36,11 +36,13 @@ parameters (``parallel/mesh.py``). Only process 0 writes files.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
 import math
 import os
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -135,16 +137,106 @@ def epoch_lr(cfg: TrainConfig, epoch0: int) -> float:
     )
 
 
+_STEP = threading.local()  # .replays: the running train step's graphs
+
+
+@contextlib.contextmanager
+def _replaying(replays: dict):
+    """``replayed`` keeps its graphs in ``replays`` (a train step's own)
+    inside this block; outside any, it runs its function as it is."""
+    before = getattr(_STEP, "replays", None)
+    _STEP.replays = replays
+    try:
+        yield
+    finally:
+        _STEP.replays = before
+
+
+def replayed(fn, tensors: Sequence[torch.Tensor]):
+    """``fn(tensors)`` (pure, a few kernels a tensor) through a CUDA
+    graph of the kernels it launches, captured when it first meets these
+    tensors (each one's address, shape, strides and dtype) and replayed
+    while they come back (the train step's gradients keep theirs:
+    ``zero_grad(set_to_none=False)``), so a call costs one launch; the
+    same kernels on the same memory give the same results. Its outputs
+    are overwritten by the next replay. The graphs are the running train
+    step's (``_replaying``); outside a step, and on the CPU, ``fn`` runs
+    as it is."""
+    replays = getattr(_STEP, "replays", None)
+    if replays is None or not tensors[0].is_cuda:
+        return fn(tensors)
+    key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                 t.device) for t in tensors)
+    entry = replays.get(fn)
+    if entry is None or entry[0] != key:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(tensors)  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(tensors)
+        entry = replays[fn] = (key, graph, out)
+    entry[1].replay()
+    return entry[2]
+
+
+def _sums_of_squares(grads):
+    return torch.stack([torch.sum(t) for t in torch._foreach_mul(grads,
+                                                                 grads)])
+
+
+def _finite(tensors):
+    return torch.isfinite(torch.cat([t.reshape(-1) for t in tensors])).all()
+
+
 def clip_by_global_norm_(grads: Sequence[torch.Tensor],
                          max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place: every gradient becomes
     ``g / norm * max_norm`` when ``norm >= max_norm``, else stays. Returns
-    the norm (no host sync)."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
-    keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    the norm (a 0-d float32 tensor on the gradients' device).
+
+    The norm is sqrt of the tensors' sums of squares added one after
+    another in float32, as a chain of 0-d additions would add them: the
+    sums are taken on the device (``replayed``) and added on the host (one
+    read, which waits for them), so a step launches no addition kernel a
+    tensor; IEEE float32 additions and square roots round alike on both
+    sides. At or past the limit the scaling is two foreach kernels (a
+    division by the norm, then a product by the limit: the same two
+    roundings of each element)."""
+    sums = replayed(_sums_of_squares, grads)
+    host = np.sqrt(np.cumsum(sums.cpu().numpy(), dtype=np.float32)[-1])
+    norm = torch.tensor(host, device=grads[0].device)
+    if not host < np.float32(max_norm):
+        grads = list(grads)
+        torch._foreach_div_(grads, norm)
+        torch._foreach_mul_(grads, max_norm)
     return norm
+
+
+def all_finite(loss: torch.Tensor, grads: Sequence[torch.Tensor]
+               ) -> torch.Tensor:
+    """Whether the loss and every gradient are finite (a 0-d bool tensor,
+    no host sync), the gradients over one flat copy (``replayed``)."""
+    return torch.isfinite(loss) & replayed(_finite, grads)
+
+
+def flat_copy(tensors: Sequence[torch.Tensor]) -> list:
+    """A copy of ``tensors`` as one flat tensor a dtype, in few launches;
+    ``restore_`` writes it back."""
+    groups: dict = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    return [(ts, torch.cat([t.reshape(-1) for t in ts]))
+            for ts in groups.values()]
+
+
+def restore_(saved: list) -> None:
+    with torch.no_grad():
+        for ts, flat in saved:
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view_as(t))
 
 
 def make_train_step(net: Net, optimizer: torch.optim.Optimizer,
@@ -173,6 +265,7 @@ def make_train_step(net: Net, optimizer: torch.optim.Optimizer,
     params = list(net.parameters())
     buffers = [b for _, b in net.named_buffers()]
     steps = itertools.count()
+    replays: dict = {}  # the guard's and the clip's graphs (``replayed``)
 
     @trace.entry_point
     def train_step(pos, refl, mask, sf, labels, lr: float,
@@ -180,7 +273,7 @@ def make_train_step(net: Net, optimizer: torch.optim.Optimizer,
         dev = pos.device
         with trace.span("step", request=next(steps)):
             with trace.span("step.forward", marks=dev):
-                saved = [b.clone() for b in buffers]
+                saved = flat_copy(buffers)
                 optimizer.zero_grad(set_to_none=False)
                 logits = net(pos, refl, mask, sf, training=True,
                              generator=generator)
@@ -216,21 +309,17 @@ def make_train_step(net: Net, optimizer: torch.optim.Optimizer,
                         g.copy_(part.view_as(g))
                     loss, counts = flat[-5].float(), flat[-4:].float()
             # the host waits here for the device to finish the backward
-            with trace.span("step.guard", marks=dev):
-                finite = torch.stack(
-                    [torch.isfinite(loss)]
-                    + [torch.isfinite(g).all() for g in grads]).all()
+            with trace.span("step.guard", marks=dev), _replaying(replays):
+                finite = all_finite(loss, grads)
                 ok = bool(finite)
-            with trace.span("step.update", marks=dev):
+            with trace.span("step.update", marks=dev), _replaying(replays):
                 if ok:
                     clip_by_global_norm_(grads, loss_cfg.grad_clip_norm)
                     for param_group in optimizer.param_groups:
                         param_group["lr"] = lr
                     optimizer.step()
                 else:
-                    with torch.no_grad():
-                        for b, s in zip(buffers, saved):
-                            b.copy_(s)
+                    restore_(saved)
             # the second read waits for the update, so the step ends with
             # the device drained
             finite = bool(finite)
@@ -346,7 +435,9 @@ def semantic_training(
     dev = resolve_device(device)
     net = set_data_group(build_train_net(model_cfg, cfg.seed, device=dev),
                          group)
-    check_voxel_pack_range(max(tiling_cfg.grid_size), min(net.sa_resolutions))
+    if isinstance(net, Net):
+        check_voxel_pack_range(max(tiling_cfg.grid_size),
+                               min(net.sa_resolutions))
     eval_batch_size = max(cfg.batch_size // 2, 1)
     if group is not None:
         bs = round_batch_size(cfg.batch_size, group)

@@ -45,10 +45,20 @@ Device marks (``marks=device``) are CUDA events recorded on the current
 stream at a span's start and end (the host clock stands in on the CPU).
 They are read only in ``collected()``, after the caller has
 synchronised: tracing adds no synchronisation to any path.
+
+A CUDA graph replays kernels without the Python that launched them, so
+the spans with device marks inside one are recorded while it is
+captured, under a ``GraphMarks`` object's ``recording()``: each end
+launches a stamp kernel (``csrc/stamp.cu``) that writes the device's
+clock into a slot of the object's buffer. After each replay while
+tracing is on, ``replayed()`` copies the buffer, and the counters'
+tensors, in stream order, and adds the capture's spans and counts to
+the tracer as that replay's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -95,7 +105,7 @@ class Tracer:
 
     def reset(self) -> None:
         self.spans = []    # closed spans (dicts), in closing order
-        self.counts = []   # (name, n, perf ns, thread, request)
+        self.counts = []   # (name, n or a tensor, perf ns, thread, request)
         self.anchors = []  # [name, perf ns, unix ns, trace ns or None]
 
     def stack(self) -> list:
@@ -156,6 +166,7 @@ class Tracer:
         spans = sorted(self.spans, key=lambda s: s["start_ns"])
         marked = [s for s in spans if s["marks"] is not None]
         origin = marked[0]["marks"][0] if marked else None
+        stamps: dict = {}  # a replay's copy of its stamps, read once
         out = []
         for s in spans:
             off = self.offset(s["start_ns"])
@@ -163,20 +174,49 @@ class Tracer:
             rec["trace_start_ns"] = s["start_ns"] + off
             rec["trace_end_ns"] = s["end_ns"] + off
             rec["device_ms"] = (None if s["marks"] is None else tuple(
-                _elapsed_ms(origin, m) for m in s["marks"]))
+                _elapsed_ms(origin, m, stamps) for m in s["marks"]))
             out.append(rec)
+        counts = [(name, int(n), *rest) for name, n, *rest in self.counts]
         totals: dict = {}
-        for name, n, *_ in self.counts:
+        for name, n, *_ in counts:
             totals[name] = totals.get(name, 0) + n
         return {"spans": out, "counters": totals,
-                "counts": list(self.counts),
+                "counts": counts,
                 "anchors": [tuple(a) for a in self.anchors]}
 
 
-def _elapsed_ms(origin, mark) -> float:
-    if isinstance(mark, int):  # the host clock's stand-in
-        return (mark - origin) * 1e-6
-    return origin.elapsed_time(mark)
+def _elapsed_ms(origin, mark, stamps: dict) -> float:
+    o_event, o_ms = _event_ms(origin, stamps)
+    m_event, m_ms = _event_ms(mark, stamps)
+    if isinstance(m_event, int):  # the host clock's stand-in
+        return (m_event - o_event) * 1e-6 + m_ms - o_ms
+    return o_event.elapsed_time(m_event) + m_ms - o_ms
+
+
+def _event_ms(mark, stamps: dict):
+    """A mark as (a CUDA event, ms after it): a replayed span's mark is
+    (the event before its replay, the replay's copy of the stamps, its
+    slot), ms after the replay's first stamp (slot 0)."""
+    if not isinstance(mark, tuple):
+        return mark, 0.0
+    event, copy, slot = mark
+    ns = stamps.get(id(copy))
+    if ns is None:
+        ns = stamps[id(copy)] = copy.tolist()
+    return event, (ns[slot] - ns[0]) * 1e-6
+
+
+def _stamp(buf: torch.Tensor, slot: int) -> None:
+    """The device's clock (ns) into ``buf[slot]``: the stamp kernel on a
+    CUDA tensor, ``perf_counter_ns`` on the CPU."""
+    if buf.device.type == "cpu":
+        buf[slot] = time.perf_counter_ns()
+        return
+    from pointstowood_tpu_torch.ops import build
+
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    build.check(build.library("stamp").ptw_stamp(buf.data_ptr(), slot,
+                                                 stream), "stamp")
 
 
 def _mark(device):
@@ -279,6 +319,86 @@ class _On:
 
 
 TRACER = Tracer()
+_RECORDING = None  # the GraphMarks recording a capture, or None
+
+
+class GraphMarks:
+    """The spans with device marks and the counters of a CUDA graph, for
+    a traced replay (see the module docstring). ``slots``: stamps the
+    buffer holds (two a span and the first)."""
+
+    def __init__(self, device, slots: int = 256):
+        self.buf = torch.zeros(slots, dtype=torch.int64, device=device)
+        self.thread = None
+        self.spans = []   # (name, slot at its start, slot at its end)
+        self.counts = []  # (name, a tensor or an int)
+        self.used = 1     # slot 0: the first stamp of a pass
+
+    @contextlib.contextmanager
+    def recording(self):
+        """One pass of the captured code (a capture's warm-up passes run
+        it too; the last pass's spans are kept): spans with device marks
+        stamp their ends, counters keep their values, tracing off."""
+        global _RECORDING
+        self.spans, self.counts, self.used = [], [], 1
+        self.thread = threading.get_ident()
+        _stamp(self.buf, 0)
+        _RECORDING = self
+        try:
+            yield self
+        finally:
+            _RECORDING = None
+
+    def _slot(self) -> int:
+        if self.used == self.buf.numel():
+            raise RuntimeError(f"GraphMarks: more than {self.used} stamps")
+        _stamp(self.buf, self.used)
+        self.used += 1
+        return self.used - 1
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        s0 = self._slot()
+        try:
+            yield None
+        finally:
+            self.spans.append((name, s0, self._slot()))
+
+    def before(self):
+        """Call just before a replay: (a CUDA event, ``perf_counter_ns``)
+        while tracing is on, else None."""
+        if not TRACER.on:
+            return None
+        return _mark(self.buf.device), time.perf_counter_ns()
+
+    def replayed(self, before) -> None:
+        """Call just after the replay that ``before`` preceded: the
+        capture's spans and counts as this replay's, children of this
+        thread's open span."""
+        if before is None or not TRACER.on:
+            return
+        event, t0 = before
+        copy = self.buf[:self.used].clone()
+        t1 = time.perf_counter_ns()
+        st = TRACER.stack()
+        parent, request = st[-1] if st else (None, None)
+        thread = threading.current_thread().name
+        for name, s0, s1 in self.spans:
+            TRACER.spans.append({
+                "id": next(TRACER._ids), "name": name, "thread": thread,
+                "parent": parent, "request": request,
+                "attrs": {"replayed": True}, "start_ns": t0, "end_ns": t1,
+                "marks": ((event, copy, s0), (event, copy, s1))})
+        for name, n in self.counts:
+            n = n.detach().clone() if isinstance(n, torch.Tensor) else n
+            TRACER.counts.append((name, n, t1, thread, request))
+
+
+def _recording():
+    """The GraphMarks recording in this thread, or None."""
+    rec = _RECORDING
+    return rec if rec is not None and rec.thread == threading.get_ident() \
+        else None
 
 
 def span(name: str, parent=None, request=None, marks=None, **attrs):
@@ -287,9 +407,13 @@ def span(name: str, parent=None, request=None, marks=None, **attrs):
     this work over (default: this thread's open span); ``request``: the
     plot or step served (default: the parent's); ``marks``: the device
     whose current stream takes a CUDA event at each end; ``attrs``: kept
-    with the span."""
+    with the span. Off, a span with marks inside a ``GraphMarks``
+    recording stamps its ends instead."""
     if not TRACER.on:
-        return NULL
+        if _RECORDING is None or marks is None:
+            return NULL
+        rec = _recording()
+        return NULL if rec is None else rec._span(name)
     return _Span(TRACER, name, parent, request, marks, attrs)
 
 
@@ -303,16 +427,24 @@ def timed(seconds: dict | None, key: str, name: str | None = None,
 
 
 def active() -> bool:
-    """Whether tracing is on (for work done only to feed a counter)."""
-    return TRACER.on
+    """Whether tracing is on, or a ``GraphMarks`` records in this thread
+    (for work done only to feed a counter)."""
+    return TRACER.on or (_RECORDING is not None and _recording() is not None)
 
 
 def count(name: str, n) -> None:
-    """Add ``n`` to the counter ``name`` while tracing is on."""
+    """Add ``n`` to the counter ``name`` while tracing is on (inside a
+    ``GraphMarks`` recording: to each traced replay's counts). A device
+    tensor is kept as it is and read only in ``collected()``, so a count
+    computed on the device adds no synchronisation."""
     if not TRACER.on:
+        rec = _recording() if _RECORDING is not None else None
+        if rec is not None:
+            rec.counts.append((name, n))
         return
     st = TRACER.stack()
-    TRACER.counts.append((name, int(n), time.perf_counter_ns(),
+    n = n.detach() if isinstance(n, torch.Tensor) else int(n)
+    TRACER.counts.append((name, n, time.perf_counter_ns(),
                           threading.current_thread().name,
                           st[-1][1] if st else None))
 

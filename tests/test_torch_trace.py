@@ -323,3 +323,48 @@ def test_threads_record_without_losing_spans_or_counts():
             up = outer[s["parent"]]
             assert (up["thread"], up["request"]) == (s["thread"],
                                                      s["request"])
+
+
+def test_graph_marks_record_a_capture_and_add_it_at_each_replay():
+    """A ``GraphMarks`` recording (a captured graph's pass; the CPU's
+    stand-in stamps the host clock) keeps the spans with device marks in
+    their stamp slots, and the counters; tracing stays off and other
+    threads record nothing into it. Each traced ``replayed()`` adds them
+    as children of the open span, with device marks; off, it adds
+    nothing."""
+    marks = trace.GraphMarks("cpu", slots=8)
+    other = []
+
+    def elsewhere():
+        other.append(trace.span("x", marks="cpu") is trace.NULL)
+
+    trace.reset()
+    with marks.recording():
+        assert trace.active() and not trace.TRACER.on
+        with trace.span("pt.fps", marks="cpu"):
+            with trace.span("unmarked"):
+                trace.count("pt.pairs", torch.tensor(7))
+        with trace.span("pt.knn", marks="cpu"):
+            t = threading.Thread(target=elsewhere)
+            t.start()
+            t.join()
+    assert not trace.active() and other == [True]
+    assert [(n, a < b) for n, a, b in marks.spans] == [("pt.fps", True),
+                                                       ("pt.knn", True)]
+    assert marks.used == 5 and trace.collected()["spans"] == []
+    marks.replayed(marks.before())  # tracing off: nothing
+    with trace.session():
+        for step in range(2):
+            with trace.span("step.forward", request=step, marks="cpu"):
+                before = marks.before()
+                marks.replayed(before)
+    rec = trace.collected()
+    trace.reset()
+    fwd = {s["id"]: s for s in rec["spans"] if s["name"] == "step.forward"}
+    replayed = [s for s in rec["spans"] if s["parent"] in fwd]
+    assert sorted((s["request"], s["name"]) for s in replayed) == [
+        (0, "pt.fps"), (0, "pt.knn"), (1, "pt.fps"), (1, "pt.knn")]
+    for s in replayed:
+        a, b = s["device_ms"]
+        assert s["attrs"] == {"replayed": True} and 0 <= a < b
+    assert rec["counters"] == {"pt.pairs": 14}
