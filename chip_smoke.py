@@ -3,6 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py [--compare-with DIR] [--accuracy-epochs E]
+                          [--only ptv1|batchnorm]
 
 With ``--compare-with DIR`` (an earlier tree's ``knn.cu``,
 ``fusion.cu``, ``group_min.cu`` and ``interp.cu``, and ``knn_dim.cu``
@@ -202,6 +203,24 @@ exits non-zero and prints no final line):
                all-masked batches, +inf slots and masked targets holding
                garbage indices, k = 1/3/8/16, f32 and bf16, T = 0 and S
                not a power of two.
+13c. batchnorm -- the training BatchNorm's kernels (csrc/batchnorm.cu,
+               ``ops.batchnorm_kernels``) at the train cells' shapes
+               (``BN_SHAPES``: SA1-SA3, the FP1 head, ptv1's level-1 pairs
+               at C = 32, 4 and 3; bf16): fed the kernels' own statistics,
+               the plain expressions give y and g_x bit for bit; the
+               autograd path repeats bit for bit; statistics and
+               gradients against float64 within twice the plain
+               version's own error (or 8 float32 ulps of the largest);
+               forward and backward ms against the byte bound, the
+               plain version's ms and ``F.batch_norm`` over the valid
+               rows (``library_ms``). Then
+               masked rows holding ±inf and 3e4 (statistics and valid y
+               unmoved) and n = 0; a CUDA-graph replay bit for bit; and
+               Net train steps (B=8 x 16384, bf16): one step twice under
+               torch's deterministic algorithms, bit for bit, the
+               tracer's ``bn.*`` counters, launches a step, and the plain
+               BatchNorm's step beside it (loss, state, ms).
+               ``--only batchnorm`` runs phases 1, 2 and this one alone.
 14. train_crosscheck -- one fp32 train step (fast kNN, centres supplied)
                on one full 16384-point tile on the CPU (plain versions) and
                on the card (kernels; FP3 fused, so the backward kernel runs
@@ -4456,6 +4475,427 @@ def ptv1_traced_step(net, step, batch, gen) -> dict:
             "pt.knn_ms": sum(ms["pt.knn"]), "pt.pairs": pairs}
 
 
+# The batch-statistic BatchNorm's kernels (csrc/batchnorm.cu) at the train
+# cells' shapes: (name, leading dims, C). SA1-SA3: the Net's local MLPs
+# over (B, centres, k) pairs; FP1: the head's (B, N); ptv1: Point
+# Transformer's level-1 pairs (k = 8) at planes 32, its weight groups
+# (C = 4) and linear_p (C = 3).
+BN_SHAPES = [
+    ("SA1", (8, 8192, 32), 128),
+    ("SA2", (8, 4096, 32), 256),
+    ("SA3", (8, 2048, 32), 512),
+    ("FP1 head", (8, 16384), 512),
+    ("ptv1 L1 pairs", (8, 16384, 8), 32),
+    ("ptv1 L1 pairs C=4", (8, 16384, 8), 4),
+    ("ptv1 L1 pairs C=3", (8, 16384, 8), 3),
+]
+BN_EPS = 1e-5
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (NaNs and the sign of zero included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.float64: torch.int64}.get(a.dtype)
+    return torch.equal(a.view(view), b.view(view)) if view else \
+        torch.equal(a, b)
+
+
+def bn_inputs(lead, c, seed, dev, dtype=None, garbage=None):
+    """x (lead, C) with a per-channel offset and scale, gy, the validity
+    mask (lead) (each tile valid on a prefix of N/2-N rows; of a pair
+    dimension, 5% of the rest masked), weight and bias. Masked rows hold
+    values like the valid ones, or ``garbage`` (a value, or "inf": +inf
+    and -inf in turn)."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, n = lead[0], lead[1]
+    counts = torch.randint(n // 2, n + 1, (b,), generator=g, device=dev)
+    mask = torch.arange(n, device=dev) < counts[:, None]
+    for extra in lead[2:]:
+        mask = mask[..., None] & (torch.rand(mask.shape + (extra,),
+                                             generator=g, device=dev) > 0.05)
+    off = torch.randn(c, generator=g, device=dev) * 2
+    scale = torch.rand(c, generator=g, device=dev) * 3 + 0.1
+    x = torch.randn(lead + (c,), generator=g, device=dev) * scale + off
+    if garbage == "inf":
+        alt = torch.arange(x.numel(), device=dev).view(x.shape) % 2 == 0
+        x = torch.where(mask[..., None], x,
+                        torch.where(alt, math.inf, -math.inf))
+    elif garbage is not None:
+        x = torch.where(mask[..., None], x, garbage)
+    gy = torch.randn(lead + (c,), generator=g, device=dev) * 1e-2
+    w = torch.randn(c, generator=g, device=dev) * 0.5 + 1
+    bias = torch.randn(c, generator=g, device=dev) * 0.1
+    return x.to(dtype), gy.to(dtype), mask, w, bias
+
+
+def bn_float64(x, mask, gy, w, b):
+    """The plain expressions in float64 autograd: (mean, var, y, g_x,
+    g_weight, g_bias)."""
+    import torch
+
+    x64 = x.double().requires_grad_()
+    w64, b64 = w.double().requires_grad_(), b.double().requires_grad_()
+    v = mask[..., None]
+    dims = tuple(range(x.dim() - 1))
+    n = torch.clamp(v.sum(dtype=torch.float64), min=1.0)
+    mean = torch.where(v, x64, 0.0).sum(dims) / n
+    d = x64 - mean
+    var = torch.where(v, d * d, 0.0).sum(dims) / n
+    y = d * torch.rsqrt(var + BN_EPS) * w64 + b64
+    g_x, g_w, g_b = torch.autograd.grad(y, (x64, w64, b64), gy.double())
+    return mean.detach(), var.detach(), y.detach(), g_x, g_w, g_b
+
+
+def bn_errors(got: dict, ref: dict) -> dict:
+    """max |got - ref| / max |ref| of each quantity."""
+    out = {}
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        out[k] = float((got[k].detach().double() - r).abs().max()) / (
+            scale or 1.0)
+    return out
+
+
+def bn_case(name, lead, c, seed, dev) -> dict:
+    """One shape: the passes against the plain expressions fed the
+    kernels' own statistics (bit for bit), the autograd path twice (bit
+    for bit), the kernels' and the plain version's errors against
+    float64, and the times. The row's launch counts are the main path's,
+    as every kernel row's (``main``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pointstowood_tpu_torch.model import layers
+    from pointstowood_tpu_torch.ops import batchnorm_kernels as bk
+
+    x, gy, mask, w, b = bn_inputs(lead, c, seed, dev)
+    rows = mask.numel()
+    x2, gy2, m1 = x.view(rows, c), gy.view(rows, c), mask.reshape(rows)
+    m = mask[..., None]
+    # the passes, the plain expressions fed the kernels' own (C,) vectors
+    mean, var, n, r = bk.batch_stats(x2, m1, BN_EPS)
+    y_k = bk._elementwise(bk.APPLY, x2, m1, None, mean, r, w, b)
+    y_p = bk.elementwise_plain(bk.APPLY, x2, m1, None, mean, r, w, b)
+    g_w, g_b, g_s2, g_mean = bk.grad_sums(x2, m1, gy2, mean, r, w, n)
+    gx_k = bk._elementwise(bk.GRAD_INPUT, x2, m1, gy2, mean, r, w, g_s2,
+                           g_mean / n)
+    gx_p = bk.elementwise_plain(bk.GRAD_INPUT, x2, m1, gy2, mean, r, w,
+                                g_s2, g_mean / n)
+    torch.cuda.synchronize()
+    if not same_bits(y_k, y_p) or not same_bits(gx_k, gx_p):
+        raise AssertionError(
+            f"batchnorm {name}: with the kernels' statistics, y "
+            f"{float((y_k != y_p).float().mean()):.2e} and g_x "
+            f"{float((gx_k != gx_p).float().mean()):.2e} of the elements "
+            f"differ from the plain expressions")
+
+    def fused():
+        xr = x.clone().requires_grad_()
+        wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+        y, mean, var, _ = bk.batch_norm_train(xr, m, wr, br, BN_EPS)
+        grads = torch.autograd.grad(y, (xr, wr, br), gy)
+        torch.cuda.synchronize()
+        return {"mean": mean, "var": var, "y": y, "g_x": grads[0],
+                "g_weight": grads[1], "g_bias": grads[2]}
+
+    one, two = fused(), fused()
+    repeat = all(same_bits(one[k], two[k]) for k in one)
+    direct = {"mean": mean, "var": var, "y": y_k.view(x.shape),
+              "g_x": gx_k.view(x.shape), "g_weight": g_w, "g_bias": g_b}
+    if not repeat or not all(same_bits(one[k], direct[k]) for k in one):
+        raise AssertionError(f"batchnorm {name}: two runs, or the autograd "
+                             f"path and its passes, differ")
+    # the plain version on the card, and float64
+    xp = x.clone().requires_grad_()
+    wp, bp = w.clone().requires_grad_(), b.clone().requires_grad_()
+    y32, mean_p, var_p, _ = layers._BatchStatsNorm.apply(
+        xp.float(), m, wp, bp, BN_EPS, None, torch.float32)
+    yp = y32.to(x.dtype)
+    gp = torch.autograd.grad(yp, (xp, wp, bp), gy, retain_graph=True)
+    plain = {"mean": mean_p, "var": var_p, "y": yp, "g_x": gp[0],
+             "g_weight": gp[1], "g_bias": gp[2]}
+    ref = dict(zip(("mean", "var", "y", "g_x", "g_weight", "g_bias"),
+                   bn_float64(x, mask, gy, w, b)))
+    err_k, err_p = bn_errors(one, ref), bn_errors(plain, ref)
+    del ref, one, two, direct, plain, gp
+    torch.cuda.empty_cache()
+    # twice the plain version's error, or a few float32 ulps of the
+    # largest value where the plain version's is smaller still
+    over = {k: (err_k[k], err_p[k]) for k in err_k
+            if err_k[k] > max(2 * err_p[k], 8 * 2.0 ** -24)}
+    if over:
+        raise AssertionError(f"batchnorm {name}: the kernels' error against "
+                             f"float64 is over twice the plain version's: "
+                             f"{over}")
+    # times: the forward, then the backward of one graph, replayed
+    xr = x.clone().requires_grad_()
+    wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+    yf = bk.batch_norm_train(xr, m, wr, br, BN_EPS)[0]
+    fwd_ms = cuda_ms(lambda: bk.batch_norm_train(x, m, w, b, BN_EPS),
+                     reps=5)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        yf, (xr, wr, br), gy, retain_graph=True), reps=5)
+    del yf, xr
+    plain_fwd_ms = cuda_ms(lambda: layers._BatchStatsNorm.apply(
+        x.float(), m, w, b, BN_EPS, None, torch.float32)[0].to(x.dtype),
+        reps=5)
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        yp, (xp, wp, bp), gy, retain_graph=True), reps=5)
+    del yp, y32, xp
+    # the yardstick, never called by the port: torch's BatchNorm over the
+    # valid rows alone (gathered outside the timing)
+    xv = x2[m1].contiguous().requires_grad_()
+    wl, bl = w.clone().requires_grad_(), b.clone().requires_grad_()
+    yl = F.batch_norm(xv, None, None, wl, bl, training=True, eps=BN_EPS)
+    gyv = gy2[m1].contiguous()
+    lib_fwd_ms = cuda_ms(lambda: F.batch_norm(
+        xv.detach(), None, None, w, b, training=True, eps=BN_EPS), reps=5)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        yl, (xv, wl, bl), gyv, retain_graph=True), reps=5)
+    es = x.element_size()
+    fwd_bound = (2 * rows * c * es + rows) / HBM_BYTES_PER_S * 1e3
+    bwd_bound = (3 * rows * c * es + rows) / HBM_BYTES_PER_S * 1e3
+    return {"name": f"batchnorm {name}", "wrapper": "batch_norm_train",
+            "file": "pointstowood_tpu_torch/csrc/batchnorm.cu",
+            "replaces": "none (the eager fp32 passes of "
+                        "model/layers.py _BatchStatsNorm)",
+            "shape": list(lead) + [c], "dtype": str(x.dtype),
+            "rows": rows, "valid_rows": int(m1.sum()),
+            "bit_for_bit_given_statistics": True, "repeats": repeat,
+            "error_kernels": err_k, "error_plain": err_p,
+            "ms": fwd_ms + bwd_ms, "forward_ms": fwd_ms,
+            "backward_ms": bwd_ms,
+            "bound_ms": fwd_bound + bwd_bound, "bound_by": "bytes",
+            "forward_bound_ms": fwd_bound, "backward_bound_ms": bwd_bound,
+            "plain_ms": plain_fwd_ms + plain_bwd_ms,
+            "plain_forward_ms": plain_fwd_ms,
+            "plain_backward_ms": plain_bwd_ms,
+            "library_ms": lib_fwd_ms + lib_bwd_ms,
+            "library_forward_ms": lib_fwd_ms,
+            "library_backward_ms": lib_bwd_ms,
+            "library": "F.batch_norm over the valid rows (gathered "
+                       "outside the timing)"}
+
+
+def bn_garbage_cases(dev) -> dict:
+    """Masked rows holding ±inf or 3e4: the statistics equal, bit for bit,
+    those of the same input with masked rows like the valid ones (a
+    masked row's x is never read), and so does y on the valid rows; with
+    every row masked (n = 0), mean 0, var 0 and n 1, as the plain code."""
+    import torch
+
+    from pointstowood_tpu_torch.ops import batchnorm_kernels as bk
+
+    out = {}
+    lead = (8, 256, 16)
+    for c, dtype in ((64, torch.bfloat16), (3, torch.bfloat16),
+                     (64, torch.float32)):
+        base = bn_inputs(lead, c, 7, dev, dtype)[0]
+        for garbage in ("inf", 3e4):
+            x, _, mask, w, b = bn_inputs(lead, c, 7, dev, dtype, garbage)
+            rows = mask.numel()
+            m1 = mask.reshape(rows)
+            got = bk.batch_stats(x.view(rows, c), m1, BN_EPS)
+            ref = bk.batch_stats(base.view(rows, c), m1, BN_EPS)
+            if not all(same_bits(p, q) for p, q in zip(got, ref)):
+                raise AssertionError(f"batchnorm: masked rows holding "
+                                     f"{garbage} moved the statistics")
+            y = bk.batch_norm_train(x, mask[..., None], w, b, BN_EPS)[0]
+            y0 = bk.batch_norm_train(base, mask[..., None], w, b, BN_EPS)[0]
+            if not same_bits(y[mask], y0[mask]):
+                raise AssertionError(f"batchnorm: masked rows holding "
+                                     f"{garbage} moved y on valid rows")
+            out[f"C={c} {dtype} {garbage}"] = "statistics and valid y equal"
+    x, _, mask, _, _ = bn_inputs((4, 64, 8), 32, 3, dev)
+    mean, var, n, _ = bk.batch_stats(x.view(-1, 32),
+                                     torch.zeros_like(mask).reshape(-1),
+                                     BN_EPS)
+    if float(mean.abs().max()) or float(var.abs().max()) or float(n) != 1:
+        raise AssertionError("batchnorm: n = 0 is not mean 0, var 0, n 1")
+    out["n=0"] = "mean 0, var 0, n 1"
+    return out
+
+
+def bn_graph_check(dev) -> dict:
+    """A MaskedBatchNorm's fused forward and backward captured in a CUDA
+    graph (``make_graphed_callables``, as ptv1's training step) and
+    replayed: y and the gradients equal the eager path's bit for bit."""
+    import torch
+
+    from pointstowood_tpu_torch.model.layers import MaskedBatchNorm
+
+    x, gy, mask, w, b = bn_inputs((8, 2048, 8), 32, 11, dev)
+
+    class Norm(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.bn = MaskedBatchNorm(32).to(dev)
+            with torch.no_grad():
+                self.bn.weight.copy_(w)
+                self.bn.bias.copy_(b)
+
+        def forward(self, h):
+            return self.bn(h, mask, False)
+
+    eager, graphed = Norm(), Norm()
+    replay = torch.cuda.make_graphed_callables(
+        graphed, (x.clone().requires_grad_(),))
+    out = []
+    for mod, fn in ((eager, eager), (graphed, replay)):
+        xr = x.clone().requires_grad_()
+        y = fn(xr)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        out.append((y.detach().clone(), xr.grad.clone(),
+                    mod.bn.weight.grad.clone(), mod.bn.bias.grad.clone()))
+    if not all(same_bits(p, q) for p, q in zip(*out)):
+        raise AssertionError("batchnorm: the replayed graph differs from "
+                             "the eager path")
+    return {"graph_replay_bit_for_bit": True, "shape": [8, 2048, 8, 32]}
+
+
+def bn_train_steps(dev, seed) -> dict:
+    """Net train steps (B = 8 x 16384, C = 32, bf16, fast kNN, seeded
+    weights) with the fused BatchNorm: one step from the same state twice
+    under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
+    loss and every state tensor bit for bit; the tracer's counters of a
+    step; the kernels' launches a step; the same step with the plain
+    BatchNorm (``layers.fused_path`` off): its loss and state beside the
+    fused step's; and the median ms of 5 steps each way."""
+    import warnings
+
+    import torch
+
+    from pointstowood_tpu_torch.config import ModelConfig, TrainConfig
+    from pointstowood_tpu_torch.data.dataset import pad_tiles
+    from pointstowood_tpu_torch.model import layers
+    from pointstowood_tpu_torch.ops import batchnorm_kernels as bk
+    from pointstowood_tpu_torch.train import trainer
+    from pointstowood_tpu_torch.utils import trace
+    from pointstowood_tpu_torch.utils.checkpoint_convert import (
+        state_dict_from_flax,
+    )
+
+    tiles = synthetic_tiles(seed)
+    batch = pad_tiles([t.points for t in tiles if len(t) == 16384][:8],
+                      16384)
+    labels = np.random.default_rng(seed).random(batch.mask.shape) < 0.3
+    args = [torch.from_numpy(a).to(dev) for a in
+            (batch.pos, batch.reflectance, batch.mask, batch.sf,
+             labels.astype(np.float32))]
+    cfg = TrainConfig()
+    base = trainer.build_train_net(ModelConfig(), seed, device=dev)
+    base.load_state_dict(state_dict_from_flax(seeded_flax_variables(base,
+                                                                    seed)))
+    start = {k: v.detach().clone() for k, v in base.state_dict().items()}
+
+    def one_step(fused=True, traced=False, steps=1):
+        net = copy.deepcopy(base)
+        opt = trainer.make_optimizer(net, cfg)
+        step = trainer.make_train_step(net, opt, cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        saved = layers.fused_path
+        if not fused:
+            layers.fused_path = lambda x, group: False
+        bk.batch_norm_train.launches = 0
+        ms = []
+        try:
+            ctx = trace.session() if traced else contextlib.nullcontext()
+            with ctx, warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(steps == 1,
+                                                   warn_only=True)
+                try:
+                    for _ in range(steps):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        loss, _, finite = step(*args, 1e-4, gen)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            counters = trace.collected()["counters"] if traced else None
+        finally:
+            layers.fused_path = saved
+        flagged = sorted({str(w.message).split(" does not have")[0][:200]
+                          for w in caught
+                          if "deterministic" in str(w.message)})
+        return {"loss": float(loss), "finite": bool(finite),
+                "state": {k: v.detach().clone()
+                          for k, v in net.state_dict().items()},
+                "launches": bk.batch_norm_train.launches / steps,
+                "counters": counters, "flagged": flagged, "ms": ms}
+
+    one_step()  # warm-up: builds, allocator
+    a, again = one_step(), one_step()
+    traced = one_step(traced=True)
+    plain = one_step(fused=False, traced=True)
+    timed = {"fused": one_step(steps=6)["ms"][1:],
+             "plain": one_step(fused=False, steps=6)["ms"][1:]}
+    moved = [k for k in a["state"]
+             if not same_bits(a["state"][k], again["state"][k])]
+    repeat = a["loss"] == again["loss"] and not moved
+
+    def norm(pairs):
+        return sum(float((p.double() - q.double()).norm()) ** 2
+                   for p, q in pairs if p.is_floating_point()) ** 0.5
+
+    rec = {"repeatable_bit_for_bit_deterministic_algorithms": repeat,
+           "tensors_moved": moved[:6], "nondeterministic_ops": a["flagged"],
+           "launches_per_step": a["launches"],
+           "counters_fused_step": {k: v for k, v in traced["counters"].items()
+                                   if k.startswith("bn.")},
+           "counters_plain_step": {k: v for k, v in plain["counters"].items()
+                                   if k.startswith("bn.")},
+           "loss_fused": a["loss"], "loss_plain": plain["loss"],
+           "state_change_fused": norm((a["state"][k], start[k])
+                                      for k in start),
+           "state_gap_fused_plain": norm((a["state"][k], plain["state"][k])
+                                         for k in start),
+           "step_ms_fused": statistics.median(timed["fused"]),
+           "step_ms_plain": statistics.median(timed["plain"]),
+           "step_ms_all": timed}
+    emit("batchnorm_train_steps", **rec)
+    if not (a["finite"] and plain["finite"]) or not repeat:
+        raise AssertionError(f"batchnorm train step: finite "
+                             f"{a['finite']}/{plain['finite']}, repeats "
+                             f"{repeat} (moved {moved[:6]})")
+    c = traced["counters"]
+    if not c.get("bn.fused_elems") or c.get("bn.plain_elems"):
+        raise AssertionError(f"batchnorm train step: counters {c}")
+    return rec
+
+
+def batchnorm_phase(dev, smi, rows, ptxas):
+    """Phase ``batchnorm``: ``bn_case`` at each of ``BN_SHAPES`` (kernel
+    rows ``batchnorm_row``), then ``bn_garbage_cases``,
+    ``bn_graph_check`` and ``bn_train_steps``, with the kernels'
+    registers and spills from the build phase."""
+    import torch
+
+    for i, (name, lead, c) in enumerate(BN_SHAPES):
+        row = bn_case(name, lead, c, SEED + i, dev)
+        row["nvidia_smi"] = smi
+        rows.append(row)
+        emit("batchnorm_row", **row)
+        torch.cuda.empty_cache()
+    garbage = bn_garbage_cases(dev)
+    graph = bn_graph_check(dev)
+    steps = bn_train_steps(dev, SEED)
+    usage = {k: v for k, v in ptxas.items()
+             if any(s in k for s in ("bn_reduce_kernel", "bn_finalize_kernel",
+                                     "bn_elementwise_kernel"))}
+    emit("batchnorm", nvidia_smi=smi, masked_rows=garbage, graph=graph,
+         train_steps=steps, ptxas=usage)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4470,7 +4910,7 @@ def main(argv=None) -> int:
              "group_min, interpolation backward and knn_topk_dim are timed "
              "in turns with the current ones at the same shapes")
     parser.add_argument(
-        "--only", choices=("ptv1",), default=None,
+        "--only", choices=("ptv1", "batchnorm"), default=None,
         help="run the device and build phases, then this phase alone")
     parser.add_argument(
         "--accuracy-epochs", type=int, default=ACCURACY_EPOCHS,
@@ -4499,6 +4939,7 @@ def main(argv=None) -> int:
     )
     from pointstowood_tpu_torch.data.dataset import pad_tiles
     from pointstowood_tpu_torch.ops import build
+    from pointstowood_tpu_torch.ops.batchnorm_kernels import batch_norm_train
     from pointstowood_tpu_torch.ops.fusion_kernels import pair_select
     from pointstowood_tpu_torch.ops.interp_kernels import (
         blend_bwd_lists,
@@ -4580,9 +5021,12 @@ def main(argv=None) -> int:
                        for n, v in old_sass.items()},
              per_pair_columns=["earlier", "current"])
 
-    if opts.only == "ptv1":
+    if opts.only:
         rows = []
-        ptv1_phase(dev, smi, rows, ptxas)
+        if opts.only == "ptv1":
+            ptv1_phase(dev, smi, rows, ptxas)
+        else:
+            batchnorm_phase(dev, smi, rows, ptxas)
         print(json.dumps({"kernels": rows}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -4689,7 +5133,8 @@ def main(argv=None) -> int:
     topk_passes_rows(lv, rows)
     top2_lanes_phase(lv, selected)
     adversarial_phase(dev)
-    ptv1_phase(dev, smi, rows, ptxas)
+    ptv1_rows = []  # their own launch counts: joined to rows at the end
+    ptv1_phase(dev, smi, ptv1_rows, ptxas)
 
     # K3 at FP3 (the FP3 top-2 above), FP2 and FP1 (the SA2 and SA1
     # transposes): 512 bf16 channels on the coarser level's points,
@@ -4760,7 +5205,8 @@ def main(argv=None) -> int:
     every_wrapper = {**wrappers, "pair_select": pair_select,
                      "group_min": group_min, "knn_topk_dim": knn_topk_dim,
                      "blend_bwd_lists": blend_bwd_lists,
-                     "interp_blend_bwd": interp_blend_bwd}
+                     "interp_blend_bwd": interp_blend_bwd,
+                     "batch_norm_train": batch_norm_train}
     for fn in every_wrapper.values():
         fn.launches = 0
     predict_cfg = PredictConfig(batch_size=8)
@@ -4944,6 +5390,7 @@ def main(argv=None) -> int:
     n_fwd = len(rows)
     blend_bwd_rows(dev, rows, SEED, ptxas, compare_with)
     adversarial_bwd_phase(dev)
+    batchnorm_phase(dev, smi, rows, ptxas)
     for row in rows:
         row.setdefault("launches_forward", fwd_launches[row["wrapper"]])
         row["launches_forward_32768"] = fwd32_launches.get(row["wrapper"], 0)
@@ -4951,7 +5398,8 @@ def main(argv=None) -> int:
     train_wrappers = {"knn_topk": knn_topk, "knn_top2": knn_top2,
                       "interp_blend": interp_blend,
                       "blend_bwd_lists": blend_bwd_lists,
-                      "interp_blend_bwd": interp_blend_bwd}
+                      "interp_blend_bwd": interp_blend_bwd,
+                      "batch_norm_train": batch_norm_train}
     _, step_launches = train_step_phase(dev, smi, every_wrapper, SEED,
                                         required=train_wrappers)
     for row in rows:
@@ -4980,6 +5428,7 @@ def main(argv=None) -> int:
             n.get(row["wrapper"], 0) for n in ddp_predict_launches]
 
     floors_phase(rows, sass)
+    rows.extend(ptv1_rows)
 
     # ---- 18. results
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -25,7 +25,9 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from pointstowood_tpu_torch.ops import batchnorm_kernels
 from pointstowood_tpu_torch.parallel.mesh import spans_processes
+from pointstowood_tpu_torch.utils import trace
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
@@ -127,6 +129,14 @@ class _BatchStatsNorm(torch.autograd.Function):
         return g_x, None, g_weight, g_bias, None, None, None
 
 
+def fused_path(x: torch.Tensor, group) -> bool:
+    """Whether a batch-statistic ``MaskedBatchNorm`` runs
+    ``ops.batchnorm_kernels.batch_norm_train`` (its CUDA passes): a CUDA
+    tensor and no data group. CPU tensors and data groups run
+    ``_BatchStatsNorm``."""
+    return x.is_cuda and group is None
+
+
 class MaskedBatchNorm(nn.BatchNorm1d):
     """BatchNorm over all non-channel dims, restricted to valid elements:
     (x - mean) * rsqrt(var + eps) * weight + bias in fp32, cast back to
@@ -148,32 +158,45 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     updates its running statistics, as one process with the whole batch
     and a group of one does. Without a group the sums are float32, as the
     JAX package's (one process's step is held to the JAX package's, its
-    counts exactly, by tests/test_torch_train.py)."""
+    counts exactly, by tests/test_torch_train.py).
+
+    With batch statistics, a CUDA tensor and no group (``fused_path``)
+    take ``ops.batchnorm_kernels.batch_norm_train``: the same statistics,
+    masking and gradients in a few streaming CUDA passes that read and
+    write x's own dtype, only the large sums in another order. The
+    tracer's counters ``bn.fused_elems`` and ``bn.plain_elems`` add x's
+    elements by path."""
 
     data_group = None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 use_running_average: bool = True) -> torch.Tensor:
-        x32 = x.float()
         if use_running_average:
-            y = (x32 - self.running_mean) * torch.rsqrt(self.running_var
-                                                        + self.eps)
+            y = (x.float() - self.running_mean) * torch.rsqrt(
+                self.running_var + self.eps)
             return (y * self.weight + self.bias).to(x.dtype)
         if mask is None:
             mask = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
         m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
         group = self.data_group
-        y, mean, var, n = _BatchStatsNorm.apply(
-            x32, m, self.weight, self.bias, self.eps,
-            group.process_group if spans_processes(group) else None,
-            torch.float32 if group is None else torch.float64)
+        if fused_path(x, group):
+            trace.count("bn.fused_elems", x.numel())
+            y, mean, var, n = batchnorm_kernels.batch_norm_train(
+                x, m, self.weight, self.bias, self.eps)
+        else:
+            trace.count("bn.plain_elems", x.numel())
+            y, mean, var, n = _BatchStatsNorm.apply(
+                x.float(), m, self.weight, self.bias, self.eps,
+                group.process_group if spans_processes(group) else None,
+                torch.float32 if group is None else torch.float64)
+            y = y.to(x.dtype)
         with torch.no_grad():
             mo = self.momentum
             unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
             self.running_mean.copy_((1 - mo) * self.running_mean + mo * mean)
             self.running_var.copy_((1 - mo) * self.running_var
                                    + mo * unbiased)
-        return y.to(x.dtype)
+        return y
 
 
 def set_data_group(net: nn.Module, group) -> nn.Module:

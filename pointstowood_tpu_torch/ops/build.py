@@ -34,12 +34,13 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("knn", "interp", "fusion", "group_min", "knn_dim", "fps",
-           "stamp")
+           "stamp", "batchnorm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of the entry points, by library.
 _SIGNATURES = {
     "knn": {
@@ -73,6 +74,11 @@ _SIGNATURES = {
     },
     "stamp": {
         "ptw_stamp": [_P, _I, _P],
+    },
+    "batchnorm": {
+        "ptw_bn_reduce": [_I] + [_P] * 7 + [_L] + [_I] * 5 + [_P],
+        "ptw_bn_finalize": [_P, _P, _I, _I, _P],
+        "ptw_bn_elementwise": [_I] + [_P] * 9 + [_L] + [_I] * 4 + [_P],
     },
 }
 

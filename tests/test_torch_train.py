@@ -60,6 +60,7 @@ from pointstowood_tpu.train import trainer as j_trainer
 from chip_smoke import seeded_flax_variables
 from pointstowood_tpu_torch import config as t_config
 from pointstowood_tpu_torch.model import Net as TNet
+from pointstowood_tpu_torch.model import layers as t_layers
 from pointstowood_tpu_torch.model import network as t_network
 from pointstowood_tpu_torch.ops import sampling as t_sampling
 from pointstowood_tpu_torch.train import augmentation as t_aug
@@ -67,6 +68,7 @@ from pointstowood_tpu_torch.train import loss as t_loss
 from pointstowood_tpu_torch.train import metrics as t_metrics
 from pointstowood_tpu_torch.train import schedule as t_schedule
 from pointstowood_tpu_torch.train import trainer as t_trainer
+from pointstowood_tpu_torch.utils import trace
 from pointstowood_tpu_torch.utils.checkpoint_convert import (
     state_dict_from_flax,
 )
@@ -266,36 +268,53 @@ def _step_inputs(seed=5, b=2, n=512):
     return xyz, refl, mask, sf, labels
 
 
+_STEP_NET = dict(channels=C, k=32, knn_method="exact",
+                 voxel_priority="last")
+
+
 @pytest.fixture(scope="module")
-def step_case():
-    kw = dict(channels=C, k=32, knn_method="exact", voxel_priority="last")
+def flax_step():
+    """The flax train step with a recording optimizer, on the batch and on
+    the same batch with its two samples swapped (one compile), and the
+    update the JAX trainer applies to its gradients."""
     inputs = _step_inputs()
     swapped = [np.ascontiguousarray(a[::-1]) for a in inputs]
-    tnet = TNet(**kw)
-    variables = seeded_flax_variables(tnet, 7)
-    tnet.load_state_dict(state_dict_from_flax(variables))
-    before = {k: v.clone() for k, v in tnet.state_dict().items()}
+    variables = seeded_flax_variables(TNet(**_STEP_NET), 7)
     jcfg = j_config.TrainConfig(learning_rate=LR)
-    tcfg = t_config.TrainConfig(learning_rate=LR)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     stats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
-    raw = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_network, "random_sample", _jax_rule)
-        mp.setattr(t_network, "random_sample", _port_rule)
-        # flax: make_train_step with a recording optimizer, on the batch
-        # and on the same batch with its two samples swapped (one compile)
         rec = optax.chain(_recorder())
         state0 = jax.jit(rec.init)(params)
-        step = j_trainer.make_train_step(JNet(**kw, dtype=jnp.float32), rec,
-                                         jcfg)
+        step = j_trainer.make_train_step(
+            JNet(**_STEP_NET, dtype=jnp.float32), rec, jcfg)
         out = step(params, stats, state0, *map(jnp.asarray, inputs),
                    jnp.float32(LR), jax.random.PRNGKey(0))
         out_sw = step(params, stats, state0, *map(jnp.asarray, swapped),
                       jnp.float32(LR), jax.random.PRNGKey(0))
-        assert bool(out[5]) and bool(out_sw[5])
-        new_params = _flax_update(jcfg, out[2][0].grads, params, LR)
+    assert bool(out[5]) and bool(out_sw[5])
+    return {"inputs": inputs, "variables": variables, "params": params,
+            "out": out, "out_sw": out_sw,
+            "new_params": _flax_update(jcfg, out[2][0].grads, params, LR)}
 
+
+def _step_case(flax_step, fused: bool):
+    """One port train step from the flax step's state and batch (every
+    batch-statistic BatchNorm on ``ops.batchnorm_kernels``' passes where
+    ``fused``, as on the card), beside the flax step's results."""
+    inputs, variables = flax_step["inputs"], flax_step["variables"]
+    out, out_sw = flax_step["out"], flax_step["out_sw"]
+    params = flax_step["params"]
+    tnet = TNet(**_STEP_NET)
+    tnet.load_state_dict(state_dict_from_flax(variables))
+    before = {k: v.clone() for k, v in tnet.state_dict().items()}
+    tcfg = t_config.TrainConfig(learning_rate=LR)
+    raw = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_network, "random_sample", _port_rule)
+        if fused:
+            mp.setattr(t_layers, "fused_path", lambda x, group: group is None)
         # the port: one train step, its gradients recorded before clipping
         clip = t_trainer.clip_by_global_norm_
 
@@ -306,8 +325,13 @@ def step_case():
         mp.setattr(t_trainer, "clip_by_global_norm_", recording_clip)
         opt = t_trainer.make_optimizer(tnet, tcfg)
         t_step = t_trainer.make_train_step(tnet, opt, tcfg)
-        loss_t, counts_t, finite_t = t_step(
-            *map(torch.from_numpy, inputs), LR, torch.Generator())
+        trace.reset()
+        with trace.session():
+            loss_t, counts_t, finite_t = t_step(
+                *map(torch.from_numpy, inputs), LR, torch.Generator())
+        bn_counts = {k: v for k, v in trace.collected()["counters"].items()
+                     if k.startswith("bn.")}
+        trace.reset()
     names = [n for n, _ in tnet.named_parameters()]
 
     def sd(params=None, batch_stats=None):
@@ -323,9 +347,45 @@ def step_case():
                   sd(out_sw[2][0].grads)),
         "stats": (tnet.state_dict(), sd(params, out[1]),
                   sd(params, out_sw[1])),
-        "params": (tnet.state_dict(), sd(new_params)),
+        "params": (tnet.state_dict(), sd(flax_step["new_params"])),
         "before": before,
+        "bn_counts": bn_counts,
     }
+
+
+@pytest.fixture(scope="module")
+def step_case(flax_step):
+    return _step_case(flax_step, fused=False)
+
+
+def _boundary_points(flax_step):
+    """Valid points whose logit lies within float32 noise of 0: the
+    port's training forward from the step's state, its BatchNorms' sums
+    in float32 and in float64; the noise is the largest gap between the
+    two logits, and a point whose float32 logit is no larger in magnitude
+    may fall on either side by the sums' order alone."""
+    inputs, variables = flax_step["inputs"], flax_step["variables"]
+    real = t_layers._BatchStatsNorm.apply
+    logits = []
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(t_network, "random_sample", _port_rule)
+        for sums in (torch.float32, torch.float64):
+            mp.setattr(t_layers._BatchStatsNorm, "apply",
+                       lambda *a, sums=sums: real(*a[:-1], sums))
+            tnet = TNet(**_STEP_NET)
+            tnet.load_state_dict(state_dict_from_flax(variables))
+            args = [torch.from_numpy(a) for a in inputs[:4]]
+            logits.append(tnet(*args, training=True,
+                               generator=torch.Generator()).float())
+    mask = torch.from_numpy(inputs[2])
+    noise = float((logits[0] - logits[1])[mask].abs().max())
+    return int((logits[0][mask].abs() <= noise).sum())
+
+
+@pytest.fixture(scope="module")
+def fused_step_case(flax_step):
+    return {**_step_case(flax_step, fused=True),
+            "boundary_points": _boundary_points(flax_step)}
 
 
 def test_train_step_loss_matches_flax(step_case):
@@ -410,6 +470,39 @@ def test_reflectance_gate_params_are_decayed(step_case):
         torch.testing.assert_close(port_sd[k], want, rtol=2e-7, atol=0)
         torch.testing.assert_close(ref[k], want, rtol=2e-7, atol=0)
         assert not torch.equal(port_sd[k], before[k])
+
+
+def _fused_loss_matches_flax(case):
+    """``test_train_step_loss_matches_flax``'s loss check; the (tp, fp,
+    tn, fn) counts equal flax's but for points within float32 noise of
+    the decision boundary (``boundary_points``), each of which moves two
+    counts by one."""
+    port, ref, ref_sw = case["loss"]
+    assert case["finite"]
+    noise = abs(ref_sw - ref) / abs(ref)
+    assert abs(port - ref) / abs(ref) <= max(1e-5, noise)
+    got, want = case["counts"]
+    assert got.sum() == want.sum()
+    assert np.abs(got - want).sum() <= 2 * case["boundary_points"], (
+        got, want, case["boundary_points"])
+
+
+@pytest.mark.parametrize("check", [
+    _fused_loss_matches_flax, test_train_step_gradients_match_flax,
+    test_train_step_running_stats_match_flax,
+    test_train_step_params_match_flax, test_reflectance_gate_params_are_decayed,
+], ids=["loss", "gradients", "running_stats", "params", "gate_decay"])
+def test_fused_batchnorm_step_matches_flax(fused_step_case, check):
+    """The same step with every batch-statistic BatchNorm on the fused
+    Function's passes (``ops.batchnorm_kernels``, their plain
+    transcription on the CPU), held to the flax step by each check above
+    at its own tolerance. The counts alone are held to flax's up to the
+    points that float32 rounding may put on either side of the decision
+    boundary: the fused passes sum in another order, and in this batch
+    one valid point's logit is -6.6e-7 with the plain float32 sums and
+    +1.1e-5 with float64 sums."""
+    assert set(fused_step_case["bn_counts"]) == {"bn.fused_elems"}
+    check(fused_step_case)
 
 
 def test_non_finite_step_is_skipped_and_restores_batch_stats(monkeypatch):
